@@ -13,12 +13,9 @@ import sys
 
 sys.path.insert(0, ".")
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
 
-ensure_env_platform()
-
-from webaudio_modem_tpu.models.config import FSKConfig  # noqa: E402
-from webaudio_modem_tpu.sim.ber import (ber_sweep,  # noqa: E402
+from webaudio_modem.models.config import FSKConfig  # noqa: E402
+from webaudio_modem.sim.ber import (ber_sweep,  # noqa: E402
                                         golden_demodulate)
 
 
@@ -73,9 +70,9 @@ def main():
 def soft_sweep(args):
     import numpy as np
 
-    from webaudio_modem_tpu.models.config import FSKConfig, FSKParams
-    from webaudio_modem_tpu.models.fsk import FSKCore
-    from webaudio_modem_tpu.ops import soft_fsk
+    from webaudio_modem.models.config import FSKConfig, FSKParams
+    from webaudio_modem.models.fsk import FSKCore
+    from webaudio_modem.ops import soft_fsk
 
     config = FSKConfig(baud_rate=args.baud, mark_frequency=args.mark,
                        space_frequency=args.space)
@@ -96,10 +93,10 @@ def soft_sweep(args):
               if args.rs else None)
     body_code = None
     if args.body == "ldpc":
-        from webaudio_modem_tpu.ops.ldpc import default_code
+        from webaudio_modem.ops.ldpc import default_code
         body_code = default_code(n=648, wc=3, wr=6)
     elif args.body == "turbo":
-        from webaudio_modem_tpu.ops.turbo import default_code
+        from webaudio_modem.ops.turbo import default_code
         body_code = default_code(K=256)
     body_sig = (soft_fsk.encode_frame_signal(params, payload,
                                              body_code=body_code)

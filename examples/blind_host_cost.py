@@ -27,18 +27,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
-
-ensure_env_platform()
 
 import numpy as np  # noqa: E402
 
 
 def run(B: int, reps: int) -> dict:
-    from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+    from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                   FSKParams)
-    from webaudio_modem_tpu.ops import soft_fsk
-    from webaudio_modem_tpu.ops.soft_blind import BlindSoftBatchReceiver
+    from webaudio_modem.ops import soft_fsk
+    from webaudio_modem.ops.soft_blind import BlindSoftBatchReceiver
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     quantum = 4800

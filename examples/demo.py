@@ -19,19 +19,16 @@ import time
 
 sys.path.insert(0, ".")
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
 
-ensure_env_platform()
-
-from webaudio_modem_tpu.models.config import FSKConfig  # noqa: E402
-from webaudio_modem_tpu.runtime import AudioGraph, FSKProcessor  # noqa: E402
-from webaudio_modem_tpu.sim import make_awgn_channel  # noqa: E402
-from webaudio_modem_tpu.transports.xmodem import XModemTransport  # noqa: E402
+from webaudio_modem.models.config import FSKConfig  # noqa: E402
+from webaudio_modem.runtime import AudioGraph, FSKProcessor  # noqa: E402
+from webaudio_modem.sim import make_awgn_channel  # noqa: E402
+from webaudio_modem.transports.xmodem import XModemTransport  # noqa: E402
 
 
 async def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--message", default="Hello from the TPU modem!")
+    ap.add_argument("--message", default="Hello from the batched modem!")
     ap.add_argument("--file", default=None)
     ap.add_argument("--baud", type=int, default=1200)
     ap.add_argument("--noise", type=float, default=0.0,
@@ -51,7 +48,7 @@ async def main() -> int:
     payload = (open(args.file, "rb").read() if args.file
                else args.message.encode())
     if args.fec:
-        from webaudio_modem_tpu.transports.fec_frame import FrameEncoder
+        from webaudio_modem.transports.fec_frame import FrameEncoder
 
         data = FrameEncoder.encode_frame(payload)
         print(f"FEC framing: {len(payload)} B payload -> {len(data)} B "
@@ -62,7 +59,7 @@ async def main() -> int:
 
     # system bring-up (demo.js initializeSystem, :210-266)
     if args.soft:
-        from webaudio_modem_tpu.models import SoftModemCore
+        from webaudio_modem.models import SoftModemCore
 
         sender_proc = FSKProcessor(name="sender", core=SoftModemCore())
         receiver_proc = FSKProcessor(name="receiver",
@@ -100,7 +97,7 @@ async def main() -> int:
     wall = time.time() - t0
 
     if args.fec:
-        from webaudio_modem_tpu.transports.fec_frame import FrameDecoder
+        from webaudio_modem.transports.fec_frame import FrameDecoder
 
         frames = FrameDecoder().process(received)
         received = frames[0] if frames else b""
@@ -114,7 +111,7 @@ async def main() -> int:
     print(f"sender stats: {stats.packets_sent} packets, "
           f"{stats.packets_retransmitted} retransmitted, "
           f"{stats.bytes_transferred} bytes")
-    from webaudio_modem_tpu.utils.trace import metrics
+    from webaudio_modem.utils.trace import metrics
     snap = metrics.snapshot()
     print(f"metrics: {snap['counters']}")
     if "farm.chunk" in snap["timings"]:

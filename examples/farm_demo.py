@@ -11,14 +11,11 @@ import time
 
 sys.path.insert(0, ".")
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
-
-ensure_env_platform()
 
 import numpy as np  # noqa: E402
 
-from webaudio_modem_tpu.models.config import FSKConfig  # noqa: E402
-from webaudio_modem_tpu.models.farm import ModemFarm  # noqa: E402
+from webaudio_modem.models.config import FSKConfig  # noqa: E402
+from webaudio_modem.models.farm import ModemFarm  # noqa: E402
 
 
 def main():

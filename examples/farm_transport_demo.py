@@ -16,19 +16,16 @@ import time
 
 sys.path.insert(0, ".")
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
 
-ensure_env_platform()
-
-from webaudio_modem_tpu.models.config import FSKConfig  # noqa: E402
-from webaudio_modem_tpu.runtime.farm_channel import FarmLoopbackHub  # noqa: E402
-from webaudio_modem_tpu.transports.xmodem import XModemTransport  # noqa: E402
-from webaudio_modem_tpu.utils.trace import metrics  # noqa: E402
+from webaudio_modem.models.config import FSKConfig  # noqa: E402
+from webaudio_modem.runtime.farm_channel import FarmLoopbackHub  # noqa: E402
+from webaudio_modem.transports.xmodem import XModemTransport  # noqa: E402
+from webaudio_modem.utils.trace import metrics  # noqa: E402
 
 
 def awgn(noise_power: float, seed: int = 0):
     # single AWGN model shared with the sim layer (sim/channels.py)
-    from webaudio_modem_tpu.sim import make_awgn_channel
+    from webaudio_modem.sim import make_awgn_channel
 
     return make_awgn_channel(noise_power, seed=seed)
 

@@ -3,7 +3,7 @@
 The reference's error-correction memo
 (/root/reference/advanced-error-correction.md) names four algorithm
 families: convolutional (畳み込み符号), block/Reed-Solomon, LDPC, and
-turbo.  This example runs all four — each batched and TPU-native —
+turbo.  This example runs all four — each batched on the device —
 over the same BPSK/AWGN channel and prints a BER / frame-success
 table per Eb/N0 point, normalizing for code rate so the comparison is
 energy-fair.
@@ -11,7 +11,7 @@ energy-fair.
 Usage:
     python examples/fec_families.py [--points 3 1.5 0 ...] [--frames N]
 
-Runs anywhere (CPU or TPU); on CPU expect ~1 min with defaults.
+Runs anywhere (CPU or GPU); on CPU expect ~1 min with defaults.
 """
 
 import argparse
@@ -19,9 +19,6 @@ import sys
 
 sys.path.insert(0, ".")
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
-
-ensure_env_platform()
 
 import numpy as np  # noqa: E402
 
@@ -36,9 +33,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    from webaudio_modem_tpu.ops import fec, rs
-    from webaudio_modem_tpu.ops.ldpc import default_code as ldpc_code
-    from webaudio_modem_tpu.ops.turbo import default_code as turbo_code
+    from webaudio_modem.ops import fec, rs
+    from webaudio_modem.ops.ldpc import default_code as ldpc_code
+    from webaudio_modem.ops.turbo import default_code as turbo_code
 
     B = args.frames
     rng = np.random.RandomState(args.seed)

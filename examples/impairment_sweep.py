@@ -18,13 +18,10 @@ import sys
 
 sys.path.insert(0, ".")
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
 
-ensure_env_platform()
-
-from webaudio_modem_tpu.models.config import FSKConfig  # noqa: E402
-from webaudio_modem_tpu.sim.ber import golden_demodulate  # noqa: E402
-from webaudio_modem_tpu.sim.impairments import (  # noqa: E402
+from webaudio_modem.models.config import FSKConfig  # noqa: E402
+from webaudio_modem.sim.ber import golden_demodulate  # noqa: E402
+from webaudio_modem.sim.impairments import (  # noqa: E402
     carrier_offset_sweep, clock_skew_sweep)
 
 

@@ -33,9 +33,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
-
-ensure_env_platform()
 
 import numpy as np  # noqa: E402
 
@@ -45,7 +42,7 @@ def _tail_s(config) -> float:
     (fsk.ts:389-395 / soft_fsk.frame_signal_length).  A hop's byte
     decodes at its stop bit, BEFORE this tail plays, so the decode
     floor subtracts one tail per hop."""
-    from webaudio_modem_tpu.models.config import FSKParams
+    from webaudio_modem.models.config import FSKParams
 
     p = FSKParams.from_config(config)
     return p.bits_per_byte * p.samples_per_bit / config.sample_rate
@@ -54,9 +51,9 @@ def _tail_s(config) -> float:
 def _signal_floor_uart(config, payload_size: int) -> tuple:
     """Summed playout seconds of the 5 ARQ hop signals (hard UART),
     and the decode floor (signals minus trailing-silence tails)."""
-    from webaudio_modem_tpu.models.fsk import FSKCore
-    from webaudio_modem_tpu.transports.xmodem.packet import XModemPacket
-    from webaudio_modem_tpu.transports.xmodem.types import ControlType
+    from webaudio_modem.models.fsk import FSKCore
+    from webaudio_modem.transports.xmodem.packet import XModemPacket
+    from webaudio_modem.transports.xmodem.types import ControlType
 
     core = FSKCore(config)
     ctrl = core.modulate_data(
@@ -70,8 +67,8 @@ def _signal_floor_uart(config, payload_size: int) -> tuple:
 def _signal_floor_soft(config, payload_size: int, rs_parity: int,
                        body_code) -> tuple:
     """Same floors over the soft-FEC wire (coded frame lengths)."""
-    from webaudio_modem_tpu.models.config import FSKParams
-    from webaudio_modem_tpu.ops import soft_fsk
+    from webaudio_modem.models.config import FSKParams
+    from webaudio_modem.ops import soft_fsk
 
     params = FSKParams.from_config(config)
     ctrl = soft_fsk.frame_signal_length(params, 1, rs_parity, body_code)
@@ -85,9 +82,9 @@ async def interactive_probe(payload_size: int, quantum: int,
                             reps: int) -> dict:
     """Reference-parity topology: two FSKProcessors on a loopback
     AudioGraph at the given quantum (128 = the reference budget)."""
-    from webaudio_modem_tpu.models.config import FSKConfig
-    from webaudio_modem_tpu.runtime import AudioGraph, FSKProcessor
-    from webaudio_modem_tpu.transports.xmodem import XModemTransport
+    from webaudio_modem.models.config import FSKConfig
+    from webaudio_modem.runtime import AudioGraph, FSKProcessor
+    from webaudio_modem.transports.xmodem import XModemTransport
 
     config = FSKConfig()
     s_proc, r_proc = FSKProcessor("s"), FSKProcessor("r")
@@ -147,22 +144,22 @@ async def farm_probe(kind: str, batch: int, payload_size: int,
                      quantum: int, reps: int, noise: float) -> dict:
     """Farm topology: B concurrent transfers over one device hub;
     latency = round start -> LAST delivery (cohort completion)."""
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-    from webaudio_modem_tpu.sim import make_device_awgn
-    from webaudio_modem_tpu.transports.xmodem import XModemTransport
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+    from webaudio_modem.sim import make_device_awgn
+    from webaudio_modem.transports.xmodem import XModemTransport
 
     config = DEFAULT_FSK_CONFIG
     chan = make_device_awgn(noise) if noise else None
     if kind == "hard":
-        from webaudio_modem_tpu.runtime.device_hub import DeviceFarmHub
+        from webaudio_modem.runtime.device_hub import DeviceFarmHub
         hub = DeviceFarmHub(config, batch, quantum=quantum,
                             ring_quanta=max(16, 80000 // quantum + 2),
                             device_channel_fn=chan)
         floor, dfloor = _signal_floor_uart(config, payload_size)
     else:
-        from webaudio_modem_tpu.models.config import FSKParams
-        from webaudio_modem_tpu.ops import soft_fsk
-        from webaudio_modem_tpu.runtime.soft_hub import (BlindSoftFarmHub,
+        from webaudio_modem.models.config import FSKParams
+        from webaudio_modem.ops import soft_fsk
+        from webaudio_modem.runtime.soft_hub import (BlindSoftFarmHub,
                                                          SoftFarmHub)
         params = FSKParams.from_config(config)
         need = -(-soft_fsk.frame_signal_length(params, 133, 0, None)

@@ -26,15 +26,12 @@ import sys
 
 sys.path.insert(0, ".")
 
-from webaudio_modem_tpu.utils.platform import ensure_env_platform  # noqa: E402
-
-ensure_env_platform()
 
 import numpy as np  # noqa: E402
 
-from webaudio_modem_tpu.models.config import FSKConfig  # noqa: E402
-from webaudio_modem_tpu.models.fsk import FSKCore  # noqa: E402
-from webaudio_modem_tpu.utils.audio_io import read_wav, write_wav  # noqa: E402
+from webaudio_modem.models.config import FSKConfig  # noqa: E402
+from webaudio_modem.models.fsk import FSKCore  # noqa: E402
+from webaudio_modem.utils.audio_io import read_wav, write_wav  # noqa: E402
 
 
 def _rx_stream(core, args) -> int:
@@ -82,7 +79,7 @@ def _rx_stream(core, args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=["tx", "rx"])
-    ap.add_argument("--message", default="Hello from the TPU modem!")
+    ap.add_argument("--message", default="Hello from the batched modem!")
     ap.add_argument("--file", default=None)
     ap.add_argument("--in", dest="wav_in", default=None)
     ap.add_argument("--out", dest="wav_out", default="modem.wav")
@@ -103,7 +100,7 @@ def main() -> int:
 
     config = FSKConfig(baud_rate=args.baud)
     if args.soft:
-        from webaudio_modem_tpu.models import SoftModemCore
+        from webaudio_modem.models import SoftModemCore
 
         core = SoftModemCore(config)
     else:

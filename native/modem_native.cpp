@@ -1,7 +1,7 @@
-// Native runtime components for webaudio_modem_tpu.
+// Native runtime components for webaudio_modem.
 //
 // The reference runs its whole runtime in JS; this framework keeps the
-// compute path on TPU (JAX/Pallas) and provides C++ for the host
+// compute path on the accelerator (JAX/Pallas) and provides C++ for the host
 // runtime's hot byte-level paths: CRC-16 and a per-channel incremental
 // XModem deframer used when draining a 4096-channel farm's decoded
 // byte streams (parsing SOH|SEQ|~SEQ|LEN|PAYLOAD|CRC16 frames and bare

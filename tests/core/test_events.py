@@ -1,6 +1,6 @@
 """EventEmitter tests (reference tests/core.node.test.ts)."""
 
-from webaudio_modem_tpu.core import Event, EventEmitter
+from webaudio_modem.core import Event, EventEmitter
 
 
 class Emitter(EventEmitter):

@@ -4,8 +4,8 @@ filters-advanced.node.test.ts)."""
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.ops import filters
-from webaudio_modem_tpu.ops.filters import (FilterFactory, FIRFilter,
+from webaudio_modem.ops import filters
+from webaudio_modem.ops.filters import (FilterFactory, FIRFilter,
                                             IIRFilter)
 
 
@@ -227,9 +227,9 @@ class TestSyncRatioEquivalence:
         # the fast block-sum sync correlation must equal the conv oracle
         import jax.numpy as jnp
 
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
-        from webaudio_modem_tpu.ops.fsk_demod import (_sync_ratios,
+        from webaudio_modem.ops.fsk_demod import (_sync_ratios,
                                                       _sync_ratios_conv)
 
         params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
@@ -247,8 +247,8 @@ class TestSyncRatioEquivalence:
         # match the conv oracle, across configs and odd chunk shapes
         import jax.numpy as jnp
 
-        from webaudio_modem_tpu.models.config import FSKConfig, FSKParams
-        from webaudio_modem_tpu.ops.fsk_demod import (
+        from webaudio_modem.models.config import FSKConfig, FSKParams
+        from webaudio_modem.ops.fsk_demod import (
             _sync_ratios_conv, _sync_ratios_cumsum, _sync_ratios_mxu)
 
         rng = np.random.RandomState(7)
@@ -271,8 +271,8 @@ class TestSyncRatioEquivalence:
         # including bf16 bit planes (the planes the pipeline feeds it)
         import jax.numpy as jnp
 
-        from webaudio_modem_tpu.models.config import FSKConfig, FSKParams
-        from webaudio_modem_tpu.ops.fsk_demod import (
+        from webaudio_modem.models.config import FSKConfig, FSKParams
+        from webaudio_modem.ops.fsk_demod import (
             _sync_ratios_band, _sync_ratios_cumsum)
 
         rng = np.random.RandomState(11)
@@ -294,8 +294,8 @@ class TestSyncRatioEquivalence:
         # must equal the ext_bits formulations exactly
         import jax.numpy as jnp
 
-        from webaudio_modem_tpu.models.config import FSKConfig, FSKParams
-        from webaudio_modem_tpu.ops.fsk_demod import (
+        from webaudio_modem.models.config import FSKConfig, FSKParams
+        from webaudio_modem.ops.fsk_demod import (
             _sync_ratios_cumsum, _sync_ratios_from_r)
 
         rng = np.random.RandomState(13)

@@ -6,9 +6,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from webaudio_modem_tpu.golden.fsk_golden import GoldenFSK
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-from webaudio_modem_tpu.ops import fsk_demod
+from webaudio_modem.golden.fsk_golden import GoldenFSK
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+from webaudio_modem.ops import fsk_demod
 
 PARAMS = FSKParams.from_config(DEFAULT_FSK_CONFIG)
 

@@ -5,9 +5,9 @@ import io
 
 import numpy as np
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKConfig
-from webaudio_modem_tpu.models import checkpoint
-from webaudio_modem_tpu.models.farm import ModemFarm
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKConfig
+from webaudio_modem.models import checkpoint
+from webaudio_modem.models.farm import ModemFarm
 
 
 def test_mid_stream_checkpoint_resume_bit_identical(tmp_path):
@@ -36,8 +36,8 @@ def test_mid_stream_checkpoint_resume_bit_identical(tmp_path):
 
 
 def test_dumps_loads_roundtrip():
-    from webaudio_modem_tpu.ops import fsk_demod
-    from webaudio_modem_tpu.models.config import FSKParams
+    from webaudio_modem.ops import fsk_demod
+    from webaudio_modem.models.config import FSKParams
 
     config = FSKConfig(baud_rate=300)
     params = FSKParams.from_config(config)
@@ -53,8 +53,8 @@ def test_dumps_loads_roundtrip():
 
 
 def test_shape_mismatch_rejected():
-    from webaudio_modem_tpu.ops import fsk_demod
-    from webaudio_modem_tpu.models.config import FSKParams
+    from webaudio_modem.ops import fsk_demod
+    from webaudio_modem.models.config import FSKParams
 
     config = FSKConfig(baud_rate=300)
     state = fsk_demod.init_state(FSKParams.from_config(config), batch=2)
@@ -71,7 +71,7 @@ def test_psk_mid_stream_checkpoint_resume_bit_identical(tmp_path):
     """Checkpointing is family-generic: a PSK farm snapshots and
     resumes bit-identically (round-1 advisor finding: FSK-only
     serialization crashed on PSK)."""
-    from webaudio_modem_tpu.models.psk import PSKConfig
+    from webaudio_modem.models.psk import PSKConfig
 
     B = 4
     cfg = PSKConfig()
@@ -98,8 +98,8 @@ def test_psk_mid_stream_checkpoint_resume_bit_identical(tmp_path):
 
 
 def test_psk_dumps_loads_roundtrip():
-    from webaudio_modem_tpu.models.psk import PSKConfig
-    from webaudio_modem_tpu.ops import psk as psk_ops
+    from webaudio_modem.models.psk import PSKConfig
+    from webaudio_modem.ops import psk as psk_ops
 
     cfg = PSKConfig(baud_rate=300)
     params = psk_ops.psk_params(carrier_frequency=cfg.carrier_frequency,
@@ -121,8 +121,8 @@ def test_unknown_family_rejected():
     import json
 
     config = FSKConfig(baud_rate=300)
-    from webaudio_modem_tpu.ops import fsk_demod
-    from webaudio_modem_tpu.models.config import FSKParams
+    from webaudio_modem.ops import fsk_demod
+    from webaudio_modem.models.config import FSKParams
 
     state = fsk_demod.init_state(FSKParams.from_config(config), batch=1)
     blob = checkpoint.dumps_state(state, config)
@@ -146,7 +146,7 @@ def test_restore_onto_mesh():
 
     if len(jax.devices()) < 8:
         return
-    from webaudio_modem_tpu.parallel.sharding import make_mesh
+    from webaudio_modem.parallel.sharding import make_mesh
 
     mesh = make_mesh(8)
     B = 8
@@ -170,8 +170,8 @@ def test_dtype_migration_cast_on_load():
     import jax
     import jax.numpy as jnp
 
-    from webaudio_modem_tpu.models.config import FSKParams
-    from webaudio_modem_tpu.ops import fsk_demod
+    from webaudio_modem.models.config import FSKParams
+    from webaudio_modem.ops import fsk_demod
 
     config = FSKConfig(baud_rate=1200)
     params = FSKParams.from_config(config)
@@ -196,9 +196,9 @@ def test_pre_r_tail_checkpoint_migrates(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-    from webaudio_modem_tpu.models import checkpoint as cp
-    from webaudio_modem_tpu.ops import fsk_demod, fsk_mod
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+    from webaudio_modem.models import checkpoint as cp
+    from webaudio_modem.ops import fsk_demod, fsk_mod
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     sig = np.asarray(fsk_mod.modulate(params, b"migrate me"))
@@ -270,9 +270,9 @@ def test_pre_r_tail_checkpoint_migrates_psk():
     import jax
     import jax.numpy as jnp
 
-    from webaudio_modem_tpu.models.psk import PSKConfig
-    from webaudio_modem_tpu.models import checkpoint as cp
-    from webaudio_modem_tpu.ops import psk as psk_ops
+    from webaudio_modem.models.psk import PSKConfig
+    from webaudio_modem.models import checkpoint as cp
+    from webaudio_modem.ops import psk as psk_ops
 
     cfg = PSKConfig()
     params = psk_ops.psk_params(carrier_frequency=cfg.carrier_frequency,

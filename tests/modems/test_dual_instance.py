@@ -3,8 +3,8 @@ fsk-demodulation.node.test.ts:792-852): two independent cores
 modulating/demodulating interleaved must not share state."""
 
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKConfig
-from webaudio_modem_tpu.models.fsk import FSKCore
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKConfig
+from webaudio_modem.models.fsk import FSKCore
 
 
 def test_two_instances_interleaved():

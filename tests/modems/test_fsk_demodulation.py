@@ -1,4 +1,4 @@
-"""Batched TPU demodulator tests, differential against the golden model.
+"""Batched demodulator tests, differential against the golden model.
 
 Mirrors the reference suite (tests/modems/fsk-demodulation.node.test.ts,
 fsk-false-positive.node.test.ts, fsk-preamble-robustness.node.test.ts,
@@ -9,9 +9,9 @@ comparator where the reference asserts exact behavior.
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.golden import GoldenFSK
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKConfig
-from webaudio_modem_tpu.models.fsk import FSKCore
+from webaudio_modem.golden import GoldenFSK
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKConfig
+from webaudio_modem.models.fsk import FSKCore
 
 
 def add_noise(signal, snr_db, rng):
@@ -163,9 +163,9 @@ class TestChunkedStreaming:
     def test_all_128_offsets_batched(self):
         # reference fsk-demodulation.node.test.ts:668-716 asserts that
         # EVERY one of the 128 chunk start offsets decodes.  The
-        # TPU-idiomatic form: one [128, T] farm call where channel b
+        # batched form: one [128, T] farm call where channel b
         # carries the signal shifted by b samples.
-        from webaudio_modem_tpu.models.farm import ModemFarm
+        from webaudio_modem.models.farm import ModemFarm
 
         data = b"OF"
         c = FSKCore(DEFAULT_FSK_CONFIG)
@@ -184,7 +184,7 @@ class TestChunkedStreaming:
         # throughput-mode grouped streaming (farm.demodulate_stream)
         # must decode byte-for-byte what the per-chunk loop decodes,
         # including a trailing partial group and trailing odd chunk
-        from webaudio_modem_tpu.models.farm import ModemFarm
+        from webaudio_modem.models.farm import ModemFarm
 
         B = 4
         msgs = [bytes([65 + b, 48 + b]) for b in range(B)]
@@ -390,8 +390,8 @@ class TestBatched:
         # batched call must each decode independently.
         import jax.numpy as jnp
 
-        from webaudio_modem_tpu.models.config import FSKParams
-        from webaudio_modem_tpu.ops import fsk_demod, fsk_mod
+        from webaudio_modem.models.config import FSKParams
+        from webaudio_modem.ops import fsk_demod, fsk_mod
 
         params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
         msgs = [b"aa", b"bb", b"cc", b"dd"]
@@ -433,7 +433,7 @@ class TestStatusParity:
 
 class TestDemodulateStreamGuards:
     def test_group_below_one_rejected(self):
-        from webaudio_modem_tpu.models.farm import ModemFarm
+        from webaudio_modem.models.farm import ModemFarm
 
         farm = ModemFarm(DEFAULT_FSK_CONFIG, 2, donate=False)
         sig = np.zeros((2, 1024), np.float32)
@@ -442,7 +442,7 @@ class TestDemodulateStreamGuards:
                 farm.demodulate_stream(sig, chunk_size=512, group=bad)
 
     def test_group_one_equals_loop(self):
-        from webaudio_modem_tpu.models.farm import ModemFarm
+        from webaudio_modem.models.farm import ModemFarm
 
         msgs = [b"G1", b"g1"]
         farm = ModemFarm(DEFAULT_FSK_CONFIG, 2, donate=False)
@@ -453,7 +453,7 @@ class TestDemodulateStreamGuards:
     def test_donate_false_preserves_held_state(self):
         # a donate=False farm must never invalidate caller-held state
         # references (snapshot/rollback pattern), grouped path included
-        from webaudio_modem_tpu.models.farm import ModemFarm
+        from webaudio_modem.models.farm import ModemFarm
 
         msgs = [b"DS", b"ds"]
         farm = ModemFarm(DEFAULT_FSK_CONFIG, 2, donate=False)
@@ -472,7 +472,7 @@ class TestDeterminism:
         # bit-identical, not just the decoded bytes
         import jax
 
-        from webaudio_modem_tpu.models.farm import ModemFarm
+        from webaudio_modem.models.farm import ModemFarm
 
         msgs = [b"D1", b"d2", b"\x00\xff"]
         runs = []

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-from webaudio_modem_tpu.ops import fsk_mod
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+from webaudio_modem.ops import fsk_mod
 
 PARAMS = FSKParams.from_config(DEFAULT_FSK_CONFIG)
 
@@ -44,7 +44,7 @@ def test_leading_padding_and_trailing_silence():
 def test_matches_golden_modulator():
     # The batched DDS must produce (near) sample-identical output to the
     # scalar golden modulator: same phase law, different evaluation order.
-    from webaudio_modem_tpu.golden import GoldenFSK
+    from webaudio_modem.golden import GoldenFSK
 
     g = GoldenFSK(DEFAULT_FSK_CONFIG)
     data = b"Hello, World!"
@@ -73,8 +73,8 @@ def test_different_patterns_differ_but_same_length():
 def test_framed_table_matches_direct():
     # the 256-entry framing table must equal per-byte _framed_bits for
     # every byte, including parity configs
-    from webaudio_modem_tpu.models.config import FSKConfig, _framed_bits
-    from webaudio_modem_tpu.ops.fsk_mod import _framed_table
+    from webaudio_modem.models.config import FSKConfig, _framed_bits
+    from webaudio_modem.ops.fsk_mod import _framed_table
 
     for parity in ("none", "even", "odd"):
         cfg = FSKConfig(parity=parity)
@@ -87,8 +87,8 @@ def test_int_phase_tables_match_float64():
     # the integer-arithmetic phase tables must match the float64 path
     # to float32 rounding (same phases mod 2*pi), and synthesize
     # near-identical signals
-    from webaudio_modem_tpu.models.config import FSKConfig, FSKParams
-    from webaudio_modem_tpu.ops import fsk_mod
+    from webaudio_modem.models.config import FSKConfig, FSKParams
+    from webaudio_modem.ops import fsk_mod
 
     for baud, mark, space in ((1200, 1650, 1850), (300, 1270, 1070)):
         params = FSKParams.from_config(FSKConfig(
@@ -129,7 +129,7 @@ class TestFrameBitsBatchValidation:
     validate its own inputs rather than rely on callers."""
 
     def test_empty_message_list_rejected(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
 
         params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
@@ -137,7 +137,7 @@ class TestFrameBitsBatchValidation:
             fsk_mod.frame_bits_batch(params, [])
 
     def test_unequal_lengths_rejected(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
 
         params = FSKParams.from_config(DEFAULT_FSK_CONFIG)

@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKConfig
-from webaudio_modem_tpu.models.fsk import FSKCore
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKConfig
+from webaudio_modem.models.fsk import FSKCore
 
 SYNC300 = FSKConfig(baud_rate=300, mark_frequency=1650,
                     space_frequency=1850, sync_threshold=0.85)

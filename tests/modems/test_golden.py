@@ -1,15 +1,15 @@
 """Golden-model behavior tests: validate the bit-exact scalar comparator
 against the reference's documented behavior (SURVEY.md §6).
 
-These exercise the *oracle itself*; the batched TPU demodulator is
+These exercise the *oracle itself*; the batched demodulator is
 differentially tested against it in test_fsk_demodulation.py.
 """
 
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.golden import GoldenFSK
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKConfig
+from webaudio_modem.golden import GoldenFSK
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKConfig
 
 
 def add_noise(signal, snr_db, rng):

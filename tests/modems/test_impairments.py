@@ -10,9 +10,9 @@ impaired signals.
 
 import numpy as np
 
-from webaudio_modem_tpu.models.config import FSKConfig
-from webaudio_modem_tpu.sim.ber import golden_demodulate
-from webaudio_modem_tpu.sim.impairments import (carrier_offset_sweep,
+from webaudio_modem.models.config import FSKConfig
+from webaudio_modem.sim.ber import golden_demodulate
+from webaudio_modem.sim.impairments import (carrier_offset_sweep,
                                                 clock_skew,
                                                 clock_skew_sweep)
 

@@ -1,6 +1,7 @@
-"""Differential test: the Pallas sequential-stage kernel (interpreter
-mode on CPU) must match the lax.scan path bit-for-bit in its decisions
-and closely in float state."""
+"""The stage-A Triton kernel (ops/pallas/fsk_seq.py), run in the Pallas
+interpreter on the CPU, against the lax.scan path it replaces; its
+wrapper's padding, gate and route rules; and its lowering for CUDA at
+the farm's widths, which the CPU can do with no card."""
 
 import numpy as np
 import pytest
@@ -8,33 +9,29 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-from webaudio_modem_tpu.ops import fsk_demod
-from webaudio_modem_tpu.ops.pallas import fsk_seq
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+from webaudio_modem.ops import fsk_demod, pallas
+from webaudio_modem.ops.pallas import fsk_seq
 
 
-@pytest.mark.parametrize("T", [256, 1000, 2048])
-def test_pallas_matches_scan(T):
-    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
-    B = fsk_seq.TILE  # 1024 channels = one tile
-    rng = np.random.RandomState(0)
-    x = rng.uniform(-1, 1, (B, T)).astype(np.float32)
-    state = fsk_demod.init_state(params, B)
-
+def _carry(state):
     fr = (state.agc_gain, state.pre, state.phi, state.iq_i, state.iq_q)
-    dsc = (state.last_phase, state.post)
+    return fr, (state.last_phase, state.post)
 
-    # lax reference over the aligned body
-    n_groups = T // params.downsample_ratio
-    Tm = n_groups * params.downsample_ratio
+
+def _compare(params, x, block=fsk_seq.BLOCK):
+    """Kernel (interpreted) vs lax scan over the aligned body of x."""
+    B, T = x.shape
+    Tm = (T // params.downsample_ratio) * params.downsample_ratio
+    state = fsk_demod.init_state(params, B)
     (fr_ref, dsc_ref, _, _, bits_ref, amps_ref,
      softs_ref) = fsk_demod._sequential_stage(
-        params, 0, state, jnp.asarray(x[:, :Tm]), unroll=2)
-
-    xT = jnp.asarray(x[:, :Tm]).T
+        params, 0, state, jnp.asarray(x[:, :Tm]))
+    fr, dsc = _carry(state)
     fr_p, dsc_p, bits_p, amps_p, softs_p = fsk_seq.seq_main(
-        params, fr, dsc, xT, T_blk=512, interpret=True)
-
+        params, fr, dsc, jnp.asarray(x[:, :Tm]).T, block=block,
+        interpret=True)
+    assert bits_p.shape == bits_ref.shape and bits_p.dtype == jnp.bfloat16
     # On random-noise input the filtered phase diff sits arbitrarily
     # close to the slicer threshold, so a vanishing fraction of bit
     # decisions may flip between float evaluation orders; real FSK
@@ -45,32 +42,48 @@ def test_pallas_matches_scan(T):
                                rtol=1e-4, atol=5e-5)
     np.testing.assert_allclose(np.asarray(softs_p), np.asarray(softs_ref),
                                rtol=1e-4, atol=5e-5)
-    # carried float state matches closely
     for a, b in zip(jax.tree.leaves((fr_p, dsc_p)),
                     jax.tree.leaves((fr_ref, dsc_ref))):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-4, atol=5e-5)
 
 
+@pytest.mark.parametrize("T", [256, 1000, 2048])
+def test_pallas_matches_scan(T):
+    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
+    x = np.random.RandomState(0).uniform(-1, 1, (64, T)).astype(np.float32)
+    _compare(params, x)
+
+
+@pytest.mark.parametrize("B", [1, 33, 70])
+def test_channel_padding(B):
+    # B not a multiple of the block: the wrapper pads and slices back
+    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
+    x = np.random.RandomState(B).uniform(-1, 1, (B, 200)).astype(
+        np.float32)
+    _compare(params, x)
+
+
+@pytest.mark.parametrize("block", [16, 32, 64])
+def test_block_widths(block):
+    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
+    x = np.random.RandomState(block).uniform(-1, 1, (64, 300)).astype(
+        np.float32)
+    _compare(params, x, block=block)
+
+
 def test_pallas_streaming_state_carry():
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
-    B = fsk_seq.TILE
-    rng = np.random.RandomState(1)
-    x = rng.uniform(-1, 1, (B, 512)).astype(np.float32)
-    state = fsk_demod.init_state(params, B)
-    fr = (state.agc_gain, state.pre, state.phi, state.iq_i, state.iq_q)
-    dsc = (state.last_phase, state.post)
-
-    # whole
-    fr_w, dsc_w, bits_w, amps_w, _ = fsk_seq.seq_main(
-        params, fr, dsc, jnp.asarray(x).T, T_blk=256, interpret=True)
-    # two chunks with carried state
-    fr_c, dsc_c, b1, a1, _ = fsk_seq.seq_main(
-        params, fr, dsc, jnp.asarray(x[:, :256]).T, T_blk=256,
-        interpret=True)
-    fr_c, dsc_c, b2, a2, _ = fsk_seq.seq_main(
-        params, fr_c, dsc_c, jnp.asarray(x[:, 256:]).T, T_blk=256,
-        interpret=True)
+    B = 64
+    x = np.random.RandomState(1).uniform(-1, 1, (B, 512)).astype(
+        np.float32)
+    fr, dsc = _carry(fsk_demod.init_state(params, B))
+    fr_w, dsc_w, bits_w, _, _ = fsk_seq.seq_main(
+        params, fr, dsc, jnp.asarray(x).T, interpret=True)
+    fr_c, dsc_c, b1, _, _ = fsk_seq.seq_main(
+        params, fr, dsc, jnp.asarray(x[:, :256]).T, interpret=True)
+    fr_c, dsc_c, b2, _, _ = fsk_seq.seq_main(
+        params, fr_c, dsc_c, jnp.asarray(x[:, 256:]).T, interpret=True)
     np.testing.assert_array_equal(
         np.concatenate([np.asarray(b1), np.asarray(b2)], 0),
         np.asarray(bits_w))
@@ -80,157 +93,81 @@ def test_pallas_streaming_state_carry():
                                    rtol=1e-4, atol=5e-5)
 
 
-def test_available_requires_tile_multiple():
-    assert not fsk_seq.available(100)
+@pytest.mark.parametrize("backend,want", [("gpu", True), ("cpu", False)])
+def test_available_follows_backend(monkeypatch, backend, want):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert fsk_seq.available() is want
 
 
-def test_pallas_rsum_matches_lax():
-    # the R-emitting kernel variant (fused sliding ds-wide bit sums)
-    # must match the lax with_rsum path bit-for-bit in bits AND rsum,
-    # across a carried ring seeded from a non-trivial bit_tail
-    from webaudio_modem_tpu.ops import fsk_mod
+def test_default_device_overrides_backend(monkeypatch):
+    # the quality calibration pins the CPU inside a GPU process: the
+    # kernels must step aside for that trace
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    with jax.default_device(jax.devices("cpu")[0]):
+        assert pallas.target_platform() == "cpu"
+        assert not fsk_seq.available()
+    assert fsk_seq.available()
 
+
+def test_raises_off_gpu_without_interpret():
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
-    B = fsk_seq.TILE
-    rng = np.random.RandomState(7)
-    sig = np.asarray(fsk_mod.modulate(params, b"ring"))
-    T = 1024
-    x = (np.tile(sig[:T], (B, 1))
-         + rng.normal(0, 0.01, (B, T))).astype(np.float32)
-    state = fsk_demod.init_state(params, B)._replace(
-        bit_tail=jnp.asarray(
-            rng.randint(0, 2, (params.sync_window, B)), jnp.bfloat16))
+    fr, dsc = _carry(fsk_demod.init_state(params, 4))
+    with pytest.raises(RuntimeError, match="compiles only for the GPU"):
+        fsk_seq.seq_main(params, fr, dsc, jnp.zeros((16, 4)))
 
+
+def test_lowers_for_cuda_at_farm_width():
+    # B=4096 channels, one 4800-sample chunk at 300 baud: the Triton
+    # lowering checks every load/store shape (powers of two) here
+    from webaudio_modem.models.config import FSKConfig
+
+    params = FSKParams.from_config(FSKConfig(
+        baud_rate=300, mark_frequency=1270, space_frequency=1070))
+    fn = jax.jit(lambda s, x: fsk_seq._seq_call(
+        params, fsk_seq.BLOCK, fsk_seq.AHEAD, False, s, x))
+    low = fn.trace(jax.ShapeDtypeStruct((fsk_seq.N_STATE, 4096),
+                                        jnp.float32),
+                   jax.ShapeDtypeStruct((4800, 4096), jnp.float32)
+                   ).lower(lowering_platforms=("cuda",))
+    assert "fsk_seq" in low.as_text()
+
+
+def test_sliding_bit_sums_match_numpy():
+    # R(i) over (carried tail ++ new bits), the input of stage C
+    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
+    ds = params.ds_samples_per_bit
+    rng = np.random.RandomState(7)
+    tail = rng.randint(0, 2, (params.sync_window, 16))
+    bits = rng.randint(0, 2, (300, 16))
+    got = fsk_demod.sliding_bit_sums(
+        params, jnp.asarray(tail, jnp.bfloat16),
+        jnp.asarray(bits, jnp.bfloat16))
+    ext = np.concatenate([tail[-ds:], bits], 0)
+    want = np.stack([ext[i + 1:i + 1 + ds].sum(0) for i in range(300)])
+    np.testing.assert_array_equal(np.asarray(got, np.float32), want)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_scan_on_gpu(gpu_only):
+    # the compiled kernel on the card, at the farm width
+    from webaudio_modem.models.config import FSKConfig
+
+    params = FSKParams.from_config(FSKConfig(
+        baud_rate=300, mark_frequency=1270, space_frequency=1070))
+    B = 4096
+    x = np.random.RandomState(3).uniform(-1, 1, (B, 4800)).astype(
+        np.float32)
+    state = fsk_demod.init_state(params, B)
+    fr, dsc = _carry(state)
+    _, _, bits_p, amps_p, _ = fsk_seq.seq_main(params, fr, dsc,
+                                               jnp.asarray(x).T)
     prev = fsk_demod.FORCE_LAX_SEQ
     fsk_demod.FORCE_LAX_SEQ = True
     try:
-        out_l = fsk_demod._sequential_stage(
-            params, 0, state, jnp.asarray(x), unroll=2, with_rsum=True)
+        ref = jax.jit(lambda s, v: fsk_demod._sequential_stage(
+            params, 0, s, v))(state, jnp.asarray(x))
     finally:
         fsk_demod.FORCE_LAX_SEQ = prev
-    bits_l, rsum_l = np.asarray(out_l[4]), np.asarray(out_l[7])
-
-    fr = (state.agc_gain, state.pre, state.phi, state.iq_i, state.iq_q)
-    dsc = (state.last_phase, state.post)
-    ds = params.ds_samples_per_bit
-    _, _, bits_p, _, _, rsum_p = fsk_seq.seq_main(
-        params, fr, dsc, jnp.asarray(x).T, T_blk=256, interpret=True,
-        ring0=state.bit_tail[-ds:])
-    np.testing.assert_array_equal(bits_l, np.asarray(bits_p))
-    np.testing.assert_array_equal(rsum_l, np.asarray(rsum_p))
-    # rsum really is the sliding ds-wide sum over (ring ++ bits)
-    ext = np.concatenate(
-        [np.asarray(state.bit_tail[-ds:], np.float32), bits_l], 0)
-    cs = np.cumsum(ext, 0)
-    np.testing.assert_array_equal(rsum_l, (cs[ds:] - cs[:-ds]).astype(
-        rsum_l.dtype))
-
-
-def test_pallas_rsum_stream_drops_match_full():
-    # emit_bits/emit_amps drop output streams at the kernel level
-    # (pallas_call outputs are opaque to XLA DCE); every RETAINED
-    # output and the carried state must be bit-identical to the full
-    # kernel's, and dropped slots must come back as None
-    from webaudio_modem_tpu.ops import fsk_mod
-
-    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
-    B = fsk_seq.TILE
-    rng = np.random.RandomState(21)
-    sig = np.asarray(fsk_mod.modulate(params, b"drop"))
-    T = 768
-    x = (np.tile(sig[:T], (B, 1))
-         + rng.normal(0, 0.02, (B, T))).astype(np.float32)
-    state = fsk_demod.init_state(params, B)._replace(
-        bit_tail=jnp.asarray(
-            rng.randint(0, 2, (params.sync_window, B)), jnp.bfloat16))
-    fr = (state.agc_gain, state.pre, state.phi, state.iq_i, state.iq_q)
-    dsc = (state.last_phase, state.post)
-    ds = params.ds_samples_per_bit
-    ring0 = state.bit_tail[-ds:]
-
-    full = fsk_seq.seq_main(params, fr, dsc, jnp.asarray(x).T,
-                            T_blk=256, interpret=True, ring0=ring0)
-    fr_f, dsc_f, bits_f, amps_f, softs_f, rsum_f = full
-
-    for kw in ({"emit_amps": False},
-               {"emit_bits": False, "emit_amps": False}):
-        fr_d, dsc_d, bits_d, amps_d, softs_d, rsum_d = fsk_seq.seq_main(
-            params, fr, dsc, jnp.asarray(x).T, T_blk=256,
-            interpret=True, ring0=ring0, **kw)
-        assert amps_d is None
-        if kw.get("emit_bits", True):
-            np.testing.assert_array_equal(np.asarray(bits_d),
-                                          np.asarray(bits_f))
-        else:
-            assert bits_d is None
-        np.testing.assert_array_equal(np.asarray(softs_d),
-                                      np.asarray(softs_f))
-        np.testing.assert_array_equal(np.asarray(rsum_d),
-                                      np.asarray(rsum_f))
-        for a, b in zip(jax.tree.leaves((fr_d, dsc_d)),
-                        jax.tree.leaves((fr_f, dsc_f))):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_pallas_emit_csum_matches_cumsum():
-    # emit_csum: the softs slot holds the INCLUSIVE f32 cumsum of the
-    # soft stream, accumulated in strict stream order (the cumsum0
-    # kernel's add order).  On TPU the adds consume the same rounded
-    # f32 values the softs stream stores, so the plane bit-equals
-    # csum0(softs)[1:]; under CPU interpret the suite-wide
-    # --xla_allow_excess_precision keeps pre-store soft values at
-    # higher precision, so this cross-path comparison is tolerance'd
-    # (CLAUDE.md float-comparison rule).  rsum and the carried state
-    # are exact either way.
-    from webaudio_modem_tpu.ops import fsk_mod
-
-    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
-    B = fsk_seq.TILE
-    rng = np.random.RandomState(23)
-    sig = np.asarray(fsk_mod.modulate(params, b"csum"))
-    T = 768
-    x = (np.tile(sig[:T], (B, 1))
-         + rng.normal(0, 0.02, (B, T))).astype(np.float32)
-    state = fsk_demod.init_state(params, B)._replace(
-        bit_tail=jnp.asarray(
-            rng.randint(0, 2, (params.sync_window, B)), jnp.bfloat16))
-    fr = (state.agc_gain, state.pre, state.phi, state.iq_i, state.iq_q)
-    dsc = (state.last_phase, state.post)
-    ds = params.ds_samples_per_bit
-    ring0 = state.bit_tail[-ds:]
-
-    full = fsk_seq.seq_main(params, fr, dsc, jnp.asarray(x).T,
-                            T_blk=256, interpret=True, ring0=ring0)
-    fr_f, dsc_f, _, _, softs_f, rsum_f = full
-
-    fr_c, dsc_c, bits_c, amps_c, inc, rsum_c = fsk_seq.seq_main(
-        params, fr, dsc, jnp.asarray(x).T, T_blk=256, interpret=True,
-        ring0=ring0, emit_bits=False, emit_amps=False, emit_csum=True)
-    assert bits_c is None and amps_c is None
-    np.testing.assert_allclose(
-        np.asarray(inc),
-        np.cumsum(np.asarray(softs_f, np.float32), axis=0),
-        rtol=1e-4, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(rsum_c),
-                                  np.asarray(rsum_f))
-    for a, b in zip(jax.tree.leaves((fr_c, dsc_c)),
-                    jax.tree.leaves((fr_f, dsc_f))):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_sequential_stage_streams_csum_wraps():
-    # streams="csum" wraps the softs slot in CsumPlane when the
-    # kernel fused the prefix sum; on the lax path (CPU default) the
-    # raw softs come back unwrapped
-    params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
-    B = 8
-    rng = np.random.RandomState(29)
-    x = rng.normal(0, 0.1, (B, 512)).astype(np.float32)
-    state = fsk_demod.init_state(params, B)
-    out = fsk_demod._sequential_stage(params, 0, state,
-                                      jnp.asarray(x), with_rsum=True,
-                                      streams="csum")
-    softs = out[6]
-    # CPU: kernel unavailable at B=8 -> raw plane, not wrapped
-    assert not isinstance(softs, fsk_demod.CsumPlane)
-    assert softs.shape[0] == out[7].shape[0]
+    assert np.mean(np.asarray(bits_p) != np.asarray(ref[4])) <= 1e-4
+    np.testing.assert_allclose(np.asarray(amps_p), np.asarray(ref[5]),
+                               rtol=1e-4, atol=5e-5)

@@ -4,7 +4,7 @@ PSK in its type union, src/core.ts:8)."""
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.psk import (DEFAULT_PSK_CONFIG, PSKConfig,
+from webaudio_modem.models.psk import (DEFAULT_PSK_CONFIG, PSKConfig,
                                            PSKCore)
 
 
@@ -97,8 +97,8 @@ class TestPSKOverTransport:
         # transport layers are modulation-agnostic
         import asyncio
 
-        from webaudio_modem_tpu.runtime import AudioGraph, FSKProcessor
-        from webaudio_modem_tpu.transports.xmodem import XModemTransport
+        from webaudio_modem.runtime import AudioGraph, FSKProcessor
+        from webaudio_modem.transports.xmodem import XModemTransport
 
         sender_proc = FSKProcessor(name="s", core=PSKCore())
         receiver_proc = FSKProcessor(name="r", core=PSKCore())
@@ -127,7 +127,7 @@ class TestPSKOverTransport:
 
 class TestPSKFarm:
     def test_psk_farm_batch_decode(self):
-        from webaudio_modem_tpu.models.farm import ModemFarm
+        from webaudio_modem.models.farm import ModemFarm
 
         B = 8
         msgs = [bytes([i, 0x42]) for i in range(B)]
@@ -141,8 +141,8 @@ def test_psk_demodulate_stream_equals_loop():
     # decode through demodulate_stream must equal the per-chunk loop
     import numpy as np
 
-    from webaudio_modem_tpu.models.farm import ModemFarm
-    from webaudio_modem_tpu.models.psk import PSKConfig
+    from webaudio_modem.models.farm import ModemFarm
+    from webaudio_modem.models.psk import PSKConfig
 
     B = 4
     msgs = [bytes([65 + b, 48 + b]) for b in range(B)]

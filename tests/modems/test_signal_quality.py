@@ -9,10 +9,10 @@ fields are genuinely computed.  These tests inject known impairments
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKConfig
-from webaudio_modem_tpu.models.farm import ModemFarm
-from webaudio_modem_tpu.models.fsk import FSKCore
-from webaudio_modem_tpu.models.psk import PSKConfig, PSKCore
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKConfig
+from webaudio_modem.models.farm import ModemFarm
+from webaudio_modem.models.fsk import FSKCore
+from webaudio_modem.models.psk import PSKConfig, PSKCore
 
 MSG = b"Quality check 123"
 
@@ -197,8 +197,8 @@ def test_quality_unaffected_by_chunk_boundary_near_sync():
     # 0 for EVERY split position around the sync point
     import jax.numpy as jnp
 
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-    from webaudio_modem_tpu.ops import fsk_demod, fsk_mod
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+    from webaudio_modem.ops import fsk_demod, fsk_mod
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     sig = np.asarray(fsk_mod.modulate(params, b"QB"), np.float32)
@@ -232,8 +232,8 @@ def test_quality_unaffected_by_chunk_boundary_near_sync():
 
 class TestCalibrationWarming:
     def test_warm_populates_cache_and_is_idempotent(self):
-        from webaudio_modem_tpu.models.config import FSKParams
-        from webaudio_modem_tpu.ops import fsk_demod
+        from webaudio_modem.models.config import FSKParams
+        from webaudio_modem.ops import fsk_demod
 
         config = FSKConfig(baud_rate=1200, mark_frequency=2125,
                            space_frequency=2295)
@@ -250,7 +250,7 @@ class TestCalibrationWarming:
     def test_configure_warms_in_background_when_enabled(self):
         import time
 
-        from webaudio_modem_tpu.ops import fsk_demod
+        from webaudio_modem.ops import fsk_demod
 
         config = FSKConfig(baud_rate=1200, mark_frequency=1500,
                            space_frequency=1700)
@@ -263,7 +263,7 @@ class TestCalibrationWarming:
             # configure must not block on the calibration build
             assert configure_s < 2.0
             # ... but the build lands shortly after, in the daemon thread
-            from webaudio_modem_tpu.models.config import FSKParams
+            from webaudio_modem.models.config import FSKParams
 
             key = (FSKParams.from_config(config), "fsk")
             deadline = time.time() + 60

@@ -4,9 +4,9 @@ ITU-T V.21 dual-channel full-duplex."""
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import FSKConfig
-from webaudio_modem_tpu.models.v21 import V21Duplex, V21Station, v21_config
-from webaudio_modem_tpu.sim.ber import (BERPoint, ber_sweep, bit_errors,
+from webaudio_modem.models.config import FSKConfig
+from webaudio_modem.models.v21 import V21Duplex, V21Station, v21_config
+from webaudio_modem.sim.ber import (BERPoint, ber_sweep, bit_errors,
                                         golden_demodulate)
 
 BELL202 = FSKConfig(baud_rate=1200, mark_frequency=1200.0,

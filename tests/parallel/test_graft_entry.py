@@ -1,7 +1,7 @@
 """Driver-contract tests: __graft_entry__ dryrun hermeticity.
 
 The round-1 driver dryrun failed because eager work dispatched to the
-default (broken TPU) backend (MULTICHIP_r01.json).  These tests pin the
+default backend when that backend was unusable.  These tests pin the
 contract: everything the dryrun touches lives on CPU devices, the
 numpy synth is dispatch-free, and the mesh path works for both model
 families.
@@ -43,8 +43,8 @@ def test_dryrun_rejects_too_many_devices():
 def test_numpy_modulate_matches_device_modulate():
     """The dispatch-free synth must produce the same signal the real
     modulator does (same phase tables, same layout)."""
-    from webaudio_modem_tpu.models.config import FSKConfig, FSKParams
-    from webaudio_modem_tpu.ops import fsk_mod
+    from webaudio_modem.models.config import FSKConfig, FSKParams
+    from webaudio_modem.ops import fsk_mod
 
     params = FSKParams.from_config(FSKConfig())
     ref = np.asarray(fsk_mod.modulate(params, b"dryrun!"))
@@ -56,7 +56,7 @@ def test_numpy_modulate_matches_device_modulate():
 
 def test_numpy_modulate_psk_matches_device_modulate():
     """The dispatch-free DBPSK synth must match ops/psk.modulate."""
-    from webaudio_modem_tpu.ops import psk
+    from webaudio_modem.ops import psk
 
     params = psk.psk_params()
     ref = np.asarray(psk.modulate(params, b"dryrun!"))

@@ -5,9 +5,9 @@ import pytest
 
 import jax
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-from webaudio_modem_tpu.models.farm import ModemFarm
-from webaudio_modem_tpu.parallel.sharding import (channel_sharding,
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+from webaudio_modem.models.farm import ModemFarm
+from webaudio_modem.parallel.sharding import (channel_sharding,
                                                   make_mesh, shard_state)
 
 
@@ -35,8 +35,8 @@ def test_sharded_farm_matches_unsharded(mesh):
 
 
 def test_sharded_state_placement(mesh):
-    from webaudio_modem_tpu.models.config import FSKParams
-    from webaudio_modem_tpu.ops import fsk_demod
+    from webaudio_modem.models.config import FSKParams
+    from webaudio_modem.ops import fsk_demod
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     state = fsk_demod.init_state(params, batch=16)
@@ -73,7 +73,7 @@ def test_demodulate_stream_sharded(mesh):
 def test_psk_farm_on_mesh(mesh):
     """0-d state leaves (PSK delay-line index) must replicate, not
     crash device_put (round-1 advisor finding)."""
-    from webaudio_modem_tpu.models.psk import PSKConfig
+    from webaudio_modem.models.psk import PSKConfig
 
     B = 16
     farm = ModemFarm(PSKConfig(), B, mesh=mesh, donate=False)
@@ -84,8 +84,8 @@ def test_psk_farm_on_mesh(mesh):
 
 
 def test_shard_state_replicates_0d_leaves(mesh):
-    from webaudio_modem_tpu.models.psk import PSKConfig
-    from webaudio_modem_tpu.ops import psk as psk_ops
+    from webaudio_modem.models.psk import PSKConfig
+    from webaudio_modem.ops import psk as psk_ops
 
     cfg = PSKConfig()
     params = psk_ops.psk_params(
@@ -102,9 +102,9 @@ def test_blind_soft_receiver_on_mesh(mesh):
     detector / header / body programs are pure per-channel math, so
     running them with the receiver state sharded over the channel mesh
     must decode the identical payloads (zero timing hints either way)."""
-    from webaudio_modem_tpu.models.config import FSKParams
-    from webaudio_modem_tpu.ops import soft_fsk
-    from webaudio_modem_tpu.ops.soft_blind import BlindSoftBatchReceiver
+    from webaudio_modem.models.config import FSKParams
+    from webaudio_modem.ops import soft_fsk
+    from webaudio_modem.ops.soft_blind import BlindSoftBatchReceiver
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     rng = np.random.RandomState(5)

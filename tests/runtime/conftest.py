@@ -11,9 +11,9 @@ import asyncio
 
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-from webaudio_modem_tpu.runtime import AudioGraph, FSKProcessor
-from webaudio_modem_tpu.transports.xmodem import XModemTransport
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+from webaudio_modem.runtime import AudioGraph, FSKProcessor
+from webaudio_modem.transports.xmodem import XModemTransport
 
 
 def make_arq_stack(channel_fn=None, core_factory=None,

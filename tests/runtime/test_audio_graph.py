@@ -4,8 +4,8 @@ import time
 
 import numpy as np
 
-from webaudio_modem_tpu.core import IAudioProcessor
-from webaudio_modem_tpu.runtime import AudioGraph
+from webaudio_modem.core import IAudioProcessor
+from webaudio_modem.runtime import AudioGraph
 
 
 class ToneSource(IAudioProcessor):

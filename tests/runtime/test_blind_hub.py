@@ -10,10 +10,10 @@ import asyncio
 
 import numpy as np
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-from webaudio_modem_tpu.runtime.soft_hub import BlindSoftFarmHub
-from webaudio_modem_tpu.sim import make_device_awgn
-from webaudio_modem_tpu.transports.xmodem import XModemTransport
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+from webaudio_modem.runtime.soft_hub import BlindSoftFarmHub
+from webaudio_modem.sim import make_device_awgn
+from webaudio_modem.transports.xmodem import XModemTransport
 
 
 async def _run_sessions(B, payloads, hub=None, timeout_ms=120000,
@@ -83,7 +83,7 @@ async def test_blind_hub_on_device_mesh():
     import jax
     import pytest
 
-    from webaudio_modem_tpu.parallel.sharding import (channel_sharding,
+    from webaudio_modem.parallel.sharding import (channel_sharding,
                                                       make_mesh)
 
     if len(jax.devices()) < 8:

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-from webaudio_modem_tpu.models.fsk import FSKCore
-from webaudio_modem_tpu.runtime import ChunkedModulator
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+from webaudio_modem.models.fsk import FSKCore
+from webaudio_modem.runtime import ChunkedModulator
 
 
 @pytest.fixture(scope="module")

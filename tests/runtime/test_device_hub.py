@@ -9,10 +9,10 @@ import asyncio
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKConfig
-from webaudio_modem_tpu.runtime.device_hub import DeviceFarmHub
-from webaudio_modem_tpu.sim import make_device_awgn
-from webaudio_modem_tpu.transports.xmodem import XModemTransport
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKConfig
+from webaudio_modem.runtime.device_hub import DeviceFarmHub
+from webaudio_modem.sim import make_device_awgn
+from webaudio_modem.transports.xmodem import XModemTransport
 
 
 async def _run_sessions(B, payloads, hub=None, timeout_ms=60000,
@@ -58,7 +58,7 @@ async def test_device_hub_on_mesh():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from webaudio_modem_tpu.parallel.sharding import make_mesh
+    from webaudio_modem.parallel.sharding import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -94,7 +94,7 @@ async def test_multi_fragment_and_ring_wrap():
 async def test_payloads_match_host_hub():
     """Same sessions through the host-playout hub and the device hub
     decode to the same payloads (no-noise determinism)."""
-    from webaudio_modem_tpu.runtime.farm_channel import FarmLoopbackHub
+    from webaudio_modem.runtime.farm_channel import FarmLoopbackHub
 
     B = 3
     payloads = [bytes([0x41 + i]) * 30 for i in range(B)]
@@ -141,7 +141,7 @@ async def test_modulate_resolves_on_playout():
 
 
 async def test_aborted_modulate_clears_ring():
-    from webaudio_modem_tpu.utils.abort import AbortController, AbortError
+    from webaudio_modem.utils.abort import AbortController, AbortError
 
     hub = DeviceFarmHub(FSKConfig(baud_rate=1200), 2, quantum=512,
                         ring_quanta=64)
@@ -169,7 +169,7 @@ async def test_aborted_modulate_clears_ring():
 
 
 async def test_reset_rejects_pending_and_silences_channel():
-    from webaudio_modem_tpu.utils.abort import AbortError
+    from webaudio_modem.utils.abort import AbortError
 
     hub = DeviceFarmHub(DEFAULT_FSK_CONFIG, 2)
     ch = hub.channel("a", 1)

@@ -9,14 +9,14 @@ import asyncio
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-from webaudio_modem_tpu.runtime.farm_channel import FarmLoopbackHub
-from webaudio_modem_tpu.transports.xmodem import XModemTransport
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+from webaudio_modem.runtime.farm_channel import FarmLoopbackHub
+from webaudio_modem.transports.xmodem import XModemTransport
 
 
 def awgn(noise_power: float, seed: int = 0):
     # single AWGN model shared with the sim layer (sim/channels.py)
-    from webaudio_modem_tpu.sim import make_awgn_channel
+    from webaudio_modem.sim import make_awgn_channel
 
     return make_awgn_channel(noise_power, seed=seed)
 
@@ -109,7 +109,7 @@ async def test_farm_channel_modulate_resolves_on_playout():
 
 async def test_aborted_modulate_stops_playout():
     # an aborted transmission must not keep feeding the wire
-    from webaudio_modem_tpu.utils.abort import AbortController, AbortError
+    from webaudio_modem.utils.abort import AbortController, AbortError
 
     hub = FarmLoopbackHub(DEFAULT_FSK_CONFIG, 2, quantum=512)
     ch = hub.channel("a", 0)
@@ -128,7 +128,7 @@ async def test_aborted_modulate_stops_playout():
 
 
 async def test_farm_channel_reset_clears_pending():
-    from webaudio_modem_tpu.utils.abort import AbortError
+    from webaudio_modem.utils.abort import AbortError
 
     hub = FarmLoopbackHub(DEFAULT_FSK_CONFIG, 2)
     ch = hub.channel("a", 1)
@@ -190,7 +190,7 @@ async def test_farm_sessions_are_independent():
 async def test_psk_farm_transport_sessions():
     """The hub dispatches modulation through the model family: PSK
     configs carry ARQ sessions too."""
-    from webaudio_modem_tpu.models.psk import PSKConfig
+    from webaudio_modem.models.psk import PSKConfig
 
     B = 4
     payloads = [bytes([0x50 + i]) * 24 for i in range(B)]
@@ -232,7 +232,7 @@ async def test_farm_hub_on_device_mesh():
 
     if len(jax.devices()) < 8:
         return
-    from webaudio_modem_tpu.parallel.sharding import make_mesh
+    from webaudio_modem.parallel.sharding import make_mesh
 
     B = 8
     hub = FarmLoopbackHub(DEFAULT_FSK_CONFIG, B, mesh=make_mesh(8))
@@ -256,9 +256,9 @@ async def test_reset_wakes_blocked_waiters():
     # reference reset-rejects-pending contract)
     import asyncio
 
-    from webaudio_modem_tpu.models.config import FSKConfig
-    from webaudio_modem_tpu.runtime.farm_channel import FarmLoopbackHub
-    from webaudio_modem_tpu.utils.abort import AbortError
+    from webaudio_modem.models.config import FSKConfig
+    from webaudio_modem.runtime.farm_channel import FarmLoopbackHub
+    from webaudio_modem.utils.abort import AbortError
 
     hub = FarmLoopbackHub(FSKConfig(baud_rate=1200), batch=2,
                           quantum=1024)
@@ -274,8 +274,8 @@ async def test_reset_wakes_blocked_waiters():
 
 def test_unconsumed_channel_backlog_bounded():
     # channels nobody consumes must not grow their queues forever
-    from webaudio_modem_tpu.models.config import FSKConfig
-    from webaudio_modem_tpu.runtime.farm_channel import (FarmDataChannel,
+    from webaudio_modem.models.config import FSKConfig
+    from webaudio_modem.runtime.farm_channel import (FarmDataChannel,
                                                          FarmLoopbackHub)
 
     hub = FarmLoopbackHub(FSKConfig(baud_rate=1200), batch=1,
@@ -294,7 +294,7 @@ async def test_pump_crash_fails_fast_not_deadlock():
     Pallas block shape raised at lowering inside the soft hub's decode
     dispatch; through ensure_future(hub.run()) the endurance run
     deadlocked for 28 minutes with zero diagnostics)."""
-    from webaudio_modem_tpu.models.config import FSKConfig
+    from webaudio_modem.models.config import FSKConfig
 
     class Boom(RuntimeError):
         pass

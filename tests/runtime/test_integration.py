@@ -3,7 +3,7 @@ simulated graph — the analog of the reference's browser integration
 suite (fsk-processor-integration-browser.test.ts:123-269) and of
 BASELINE config 3 (XModem over lossy simulated audio)."""
 
-from webaudio_modem_tpu.sim import make_awgn_channel
+from webaudio_modem.sim import make_awgn_channel
 
 from tests.runtime.conftest import arq_transfer as _transfer
 from tests.runtime.conftest import make_arq_stack as _make_stack
@@ -67,7 +67,7 @@ class TestXModemOverAudio:
     async def test_transfer_over_lossy_channel_with_retransmission(self):
         # burst loss severe enough to corrupt packets: the ARQ layer
         # must recover via NAK/timeout retransmission (BASELINE cfg 3)
-        from webaudio_modem_tpu.sim import make_dropout_channel
+        from webaudio_modem.sim import make_dropout_channel
 
         graph, sender, receiver = _make_stack(
             channel_fn=make_dropout_channel(drop_probability=0.004,

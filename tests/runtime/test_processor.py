@@ -6,9 +6,9 @@ import asyncio
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-from webaudio_modem_tpu.runtime import AudioGraph, FSKProcessor
-from webaudio_modem_tpu.utils.abort import AbortController, AbortError
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+from webaudio_modem.runtime import AudioGraph, FSKProcessor
+from webaudio_modem.utils.abort import AbortController, AbortError
 
 
 @pytest.fixture

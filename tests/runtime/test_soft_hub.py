@@ -11,10 +11,10 @@ import asyncio
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-from webaudio_modem_tpu.runtime.soft_hub import SoftFarmHub
-from webaudio_modem_tpu.sim import make_device_awgn
-from webaudio_modem_tpu.transports.xmodem import XModemTransport
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+from webaudio_modem.runtime.soft_hub import SoftFarmHub
+from webaudio_modem.sim import make_device_awgn
+from webaudio_modem.transports.xmodem import XModemTransport
 
 
 async def _run_sessions(B, payloads, hub=None, timeout_ms=60000,
@@ -113,7 +113,7 @@ async def test_modulate_resolves_on_playout():
 
 
 async def test_aborted_modulate_clears_ring_and_suppresses_decode():
-    from webaudio_modem_tpu.utils.abort import AbortController, AbortError
+    from webaudio_modem.utils.abort import AbortController, AbortError
 
     hub = SoftFarmHub(DEFAULT_FSK_CONFIG, 2, ring_quanta=32)
     ch = hub.channel("a", 0)
@@ -141,7 +141,7 @@ async def test_aborted_modulate_clears_ring_and_suppresses_decode():
 async def test_rs_and_ldpc_body_modes_transfer():
     """The hub's coding knobs mirror the soft_fsk surface: a transfer
     completes under the concatenated-RS and LDPC-body modes."""
-    from webaudio_modem_tpu.ops.ldpc import LDPCCode
+    from webaudio_modem.ops.ldpc import LDPCCode
 
     for kwargs in ({"rs_parity": 8},
                    {"body_code": LDPCCode(n=120, wc=3, wr=6)}):
@@ -189,7 +189,7 @@ async def test_soft_hub_on_mesh():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from webaudio_modem_tpu.parallel.sharding import make_mesh
+    from webaudio_modem.parallel.sharding import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -211,15 +211,15 @@ async def test_mesh_batch_divisibility_validated():
     clear error, not an opaque device_put sharding error (advisor r4)."""
     import jax
 
-    from webaudio_modem_tpu.parallel.sharding import make_mesh
+    from webaudio_modem.parallel.sharding import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     mesh = make_mesh(8)
     with pytest.raises(ValueError, match="must divide the mesh"):
         SoftFarmHub(DEFAULT_FSK_CONFIG, 12, mesh=mesh)
-    from webaudio_modem_tpu.models.config import FSKParams
-    from webaudio_modem_tpu.ops.soft_blind import BlindSoftBatchReceiver
+    from webaudio_modem.models.config import FSKParams
+    from webaudio_modem.ops.soft_blind import BlindSoftBatchReceiver
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     with pytest.raises(ValueError, match="must divide the mesh"):

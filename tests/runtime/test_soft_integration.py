@@ -10,9 +10,9 @@ transport only ever sees the IDataChannel verbs)."""
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-from webaudio_modem_tpu.models.soft_modem import SoftModemCore
-from webaudio_modem_tpu.sim import make_awgn_channel
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+from webaudio_modem.models.soft_modem import SoftModemCore
+from webaudio_modem.sim import make_awgn_channel
 
 from tests.runtime.conftest import arq_transfer as _transfer
 from tests.runtime.conftest import make_arq_stack
@@ -40,7 +40,7 @@ class TestXModemOverSoftModem:
 
     async def test_transfer_with_ldpc_body(self):
         # the pluggable body code rides the whole stack too
-        from webaudio_modem_tpu.ops.ldpc import default_code
+        from webaudio_modem.ops.ldpc import default_code
 
         code = default_code(n=120, wc=3, wr=6)
         graph, sender, receiver = _make_stack(body_code=code)

@@ -22,8 +22,8 @@ def soft_grid_search():
     def run(params, cw, sigma, rng, attempt):
         import jax.numpy as jnp
 
-        from webaudio_modem_tpu.ops import fsk_demod, fsk_mod
-        from webaudio_modem_tpu.ops.soft_fsk import _bit_llrs
+        from webaudio_modem.ops import fsk_demod, fsk_mod
+        from webaudio_modem.ops.soft_fsk import _bit_llrs
 
         bits = np.concatenate([np.asarray(params.pattern_bits, np.int8),
                                np.asarray(cw, np.int8)])[None]

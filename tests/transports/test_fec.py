@@ -5,8 +5,8 @@ verified."""
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.ops import fec
-from webaudio_modem_tpu.transports.fec_frame import (FrameDecoder,
+from webaudio_modem.ops import fec
+from webaudio_modem.transports.fec_frame import (FrameDecoder,
                                                      FrameEncoder)
 
 
@@ -130,7 +130,7 @@ class TestFrameCodec:
         good = FrameEncoder.encode_frame(b"good")
         bad = bytearray(FrameEncoder.encode_frame(b"bad frame here"))
         # destroy a burst in the body (beyond correction), header intact
-        from webaudio_modem_tpu.transports.fec_frame import HEADER_CODED
+        from webaudio_modem.transports.fec_frame import HEADER_CODED
         for i in range(HEADER_CODED + 2, HEADER_CODED + 14):
             bad[i] ^= 0xFF
         got = dec.process(bytes(bad) + good)
@@ -150,8 +150,8 @@ class TestFrameCodec:
 class TestFecOverModem:
     def test_fec_frames_over_fsk_audio(self):
         # end-to-end: FEC frame -> FSK audio -> demod -> FrameDecoder
-        from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-        from webaudio_modem_tpu.models.fsk import FSKCore
+        from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+        from webaudio_modem.models.fsk import FSKCore
 
         core = FSKCore(DEFAULT_FSK_CONFIG)
         payload = b"FEC over FSK audio!"
@@ -180,9 +180,9 @@ class TestSoftStreamSurface:
     def test_soft_stream_matches_hard_bits(self):
         # the memo's SoftDecisionDemodulator surface: softs' sign IS
         # the hard bit stream
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
-        from webaudio_modem_tpu.ops import fsk_demod, fsk_mod
+        from webaudio_modem.ops import fsk_demod, fsk_mod
 
         params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
         sig = np.asarray(fsk_mod.modulate(params, b"soft!"))
@@ -199,12 +199,12 @@ class TestSoftPhysicalLayer:
     as a physical-layer mode: ops/soft_fsk."""
 
     def _params(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
         return FSKParams.from_config(DEFAULT_FSK_CONFIG)
 
     def test_clean_roundtrip(self):
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         payload = b"soft physical layer"
@@ -214,8 +214,8 @@ class TestSoftPhysicalLayer:
         assert soft_fsk.decode_frame_signal(params, sig) == payload
 
     def test_roundtrip_at_300_baud(self):
-        from webaudio_modem_tpu.models.config import FSKConfig, FSKParams
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.models.config import FSKConfig, FSKParams
+        from webaudio_modem.ops import soft_fsk
 
         params = FSKParams.from_config(FSKConfig(
             baud_rate=300, mark_frequency=1270, space_frequency=1070))
@@ -224,7 +224,7 @@ class TestSoftPhysicalLayer:
         assert soft_fsk.decode_frame_signal(params, sig) == payload
 
     def test_silence_prefix(self):
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         payload = b"offset frame"
@@ -233,14 +233,14 @@ class TestSoftPhysicalLayer:
         assert soft_fsk.decode_frame_signal(params, padded) == payload
 
     def test_empty_payload(self):
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         sig = soft_fsk.encode_frame_signal(params, b"")
         assert soft_fsk.decode_frame_signal(params, sig) == b""
 
     def test_garbage_returns_none(self):
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         rng = np.random.RandomState(6)
@@ -252,9 +252,9 @@ class TestSoftPhysicalLayer:
         reliably while the hard UART modem has collapsed (measured:
         soft 8/8 vs hard 3/8 at this seed family; soft stays >=5/8
         down to 2 dB)."""
-        from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-        from webaudio_modem_tpu.models.fsk import FSKCore
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+        from webaudio_modem.models.fsk import FSKCore
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         payload = b"soft wins at low SNR"
@@ -279,9 +279,9 @@ class TestSoftPhysicalLayer:
         assert soft_ok > hard_ok
 
     def test_batched_farm_scale_soft_decode(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
         B = 16
@@ -304,7 +304,7 @@ class TestDecoderResyncRobustness:
     def test_oversized_len_cap_resyncs(self):
         # a decoder configured with a small max_payload treats a header
         # advertising more as junk and keeps scanning
-        from webaudio_modem_tpu.transports.fec_frame import (FrameDecoder,
+        from webaudio_modem.transports.fec_frame import (FrameDecoder,
                                                              FrameEncoder)
 
         big = FrameEncoder.encode_frame(b"x" * 64)
@@ -317,7 +317,7 @@ class TestDecoderResyncRobustness:
     def test_lossless_resync_finds_frame_inside_phantom_body(self):
         # corrupt-body resync must not discard the body span: a genuine
         # frame that starts inside it is still decoded
-        from webaudio_modem_tpu.transports.fec_frame import (HEADER_CODED,
+        from webaudio_modem.transports.fec_frame import (HEADER_CODED,
                                                              FrameDecoder,
                                                              FrameEncoder)
 
@@ -335,8 +335,8 @@ class TestDecoderResyncRobustness:
 def test_soft_batch_short_stream_returns_none():
     # decode_frames_batch on a stream shorter than one coded header
     # span must return [None]*B, not crash indexing the soft stream
-    from webaudio_modem_tpu.models.config import FSKConfig, FSKParams
-    from webaudio_modem_tpu.ops import soft_fsk
+    from webaudio_modem.models.config import FSKConfig, FSKParams
+    from webaudio_modem.ops import soft_fsk
 
     params = FSKParams.from_config(FSKConfig(baud_rate=1200))
     out = soft_fsk.decode_frames_batch(
@@ -398,7 +398,7 @@ class TestStreamingSoftDecode:
     chunk boundaries (reference chunk contract, src/core.ts:99-102)."""
 
     def _params(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
         return FSKParams.from_config(DEFAULT_FSK_CONFIG)
 
@@ -408,8 +408,8 @@ class TestStreamingSoftDecode:
         float tolerance (chunk splits move XLA fusion boundaries, and
         the test env compiles with --xla_allow_excess_precision —
         decoded-payload equality is the hard contract, CLAUDE.md)."""
-        from webaudio_modem_tpu.models.config import FSKParams
-        from webaudio_modem_tpu.ops import fsk_demod, fsk_mod
+        from webaudio_modem.models.config import FSKParams
+        from webaudio_modem.ops import fsk_demod, fsk_mod
 
         params = self._params()
         sig = np.asarray(fsk_mod.modulate(params, b"carry me"))
@@ -434,7 +434,7 @@ class TestStreamingSoftDecode:
     def test_random_chunk_splits_equal_whole(self):
         """Decoded payloads from random splits == whole-signal decode
         (the soft-path mirror of the hard pipeline's split test)."""
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         payload = b"boundary-spanning FEC frame payload"
@@ -453,7 +453,7 @@ class TestStreamingSoftDecode:
     def test_fixed_128_sample_quanta(self):
         """AudioWorklet-style 128-sample quanta: every frame boundary
         falls inside a chunk."""
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         payload = bytes(range(48))
@@ -467,7 +467,7 @@ class TestStreamingSoftDecode:
         stronger SECOND frame decoded first and its scan-point advance
         consumed the first frame (found by driving the public API with
         a whole two-frame signal as a single chunk)."""
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         p1, p2 = b"first, weaker peak", b"second frame decodes too"
@@ -478,7 +478,7 @@ class TestStreamingSoftDecode:
         assert soft_fsk.decode_frame_chunks(params, [sig]) == [p1, p2]
 
     def test_back_to_back_frames_with_silence_gap(self):
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         p1, p2 = b"first frame", b"second frame, longer payload"
@@ -492,7 +492,7 @@ class TestStreamingSoftDecode:
     def test_incremental_decode_fires_as_frames_complete(self):
         """The first frame must decode BEFORE the second's samples are
         fed — streaming, not buffer-then-decode."""
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = self._params()
         p1, p2 = b"early", b"late"
@@ -508,8 +508,8 @@ class TestStreamingSoftDecode:
     def test_noise_and_junk_prefix_chunked(self):
         """Chunked decode still works below the hard-UART floor, after
         a noise-only lead-in, with bounded memory."""
-        from webaudio_modem_tpu.ops import soft_fsk
-        from webaudio_modem_tpu.sim import awgn
+        from webaudio_modem.ops import soft_fsk
+        from webaudio_modem.sim import awgn
 
         params = self._params()
         payload = b"noisy streaming frame"
@@ -530,7 +530,7 @@ class TestStreamingSoftDecode:
 def test_conv_encode_batch_matches_scalar():
     # the windowed-parity batch encoder is bit-identical per row to
     # the scalar FSM encoder
-    from webaudio_modem_tpu.ops import fec
+    from webaudio_modem.ops import fec
 
     rng = np.random.RandomState(11)
     bits = rng.randint(0, 2, size=(16, 73)).astype(np.uint8)
@@ -543,8 +543,8 @@ def test_conv_encode_batch_matches_scalar():
 def test_encode_frames_batch_matches_single_and_decodes():
     # one-dispatch batched frame synthesis: float32-close to the
     # per-message encode and decode-exact through the batch decoder
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-    from webaudio_modem_tpu.ops import soft_fsk
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+    from webaudio_modem.ops import soft_fsk
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     payloads = [bytes([0x10 * i + k for k in range(7)]) for i in range(5)]
@@ -559,8 +559,8 @@ def test_encode_frames_batch_matches_single_and_decodes():
 
 
 def test_encode_frames_batch_validates_input():
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-    from webaudio_modem_tpu.ops import soft_fsk
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+    from webaudio_modem.ops import soft_fsk
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     with pytest.raises(ValueError):
@@ -572,8 +572,8 @@ def test_encode_frames_batch_validates_input():
 def test_decode_frames_batch_async_pipelines_to_same_payloads():
     # the pipelined form: N in-flight dispatches, finalized in order,
     # each batch byte-identical to the blocking call
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-    from webaudio_modem_tpu.ops import soft_fsk
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+    from webaudio_modem.ops import soft_fsk
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     B = 3
@@ -604,8 +604,8 @@ def test_soft_batch_device_resident_input_matches_numpy():
     # (the DeviceFarmHub pattern) and returns identical payloads
     import jax.numpy as jnp
 
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-    from webaudio_modem_tpu.ops import soft_fsk
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+    from webaudio_modem.ops import soft_fsk
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     B = 4
@@ -650,7 +650,7 @@ class TestViterbiNormSchedule:
         (exactly the soft path's acceptance rule)."""
         body = fec.bits_to_bytes(bits)
         payload = body[:payload_len]
-        from webaudio_modem_tpu.utils.crc16 import CRC16
+        from webaudio_modem.utils.crc16 import CRC16
         if CRC16.calculate(payload) == ((body[payload_len] << 8)
                                         | body[payload_len + 1]):
             return payload

@@ -16,7 +16,7 @@ import numpy as np
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
-from webaudio_modem_tpu.ops import rs
+from webaudio_modem.ops import rs
 
 # modest example counts: every fresh RS geometry is a new XLA:CPU
 # compile, and a single pytest process must stay well under the
@@ -66,7 +66,7 @@ class TestBlockCodeProperties:
               suppress_health_check=[HealthCheck.too_slow])
     @given(seed=st.integers(0, 2**31 - 1))
     def test_ldpc_confident_llrs_roundtrip(self, seed):
-        from webaudio_modem_tpu.ops.ldpc import default_code
+        from webaudio_modem.ops.ldpc import default_code
 
         code = default_code(n=120, wc=3, wr=6)
         rng = np.random.RandomState(seed)
@@ -81,7 +81,7 @@ class TestBlockCodeProperties:
               suppress_health_check=[HealthCheck.too_slow])
     @given(seed=st.integers(0, 2**31 - 1))
     def test_turbo_confident_llrs_roundtrip(self, seed):
-        from webaudio_modem_tpu.ops.turbo import default_code
+        from webaudio_modem.ops.turbo import default_code
 
         code = default_code(K=128)
         rng = np.random.RandomState(seed)

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.ops.ldpc import LDPCCode, default_code
+from webaudio_modem.ops.ldpc import LDPCCode, default_code
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +118,7 @@ def test_ldpc_over_fsk_audio(soft_grid_search):
     audio -> soft discriminator LLRs -> min-sum decode.  The bit-grid
     offset is self-selecting: LDPC's own syndrome check validates the
     grid, playing the role the header CRC plays for conv frames."""
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     code = default_code(n=120, wc=3, wr=6)
@@ -152,9 +152,9 @@ class TestLdpcBodyMode:
 
     @pytest.fixture(scope="class")
     def setup(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
         code = default_code(n=648, wc=3, wr=6)

@@ -10,7 +10,7 @@ corruption is flagged, bursts split across an interleaver correct."""
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.ops import gf256, rs
+from webaudio_modem.ops import gf256, rs
 
 
 def _poly_div_remainder(data: np.ndarray, n: int, k: int) -> np.ndarray:
@@ -174,12 +174,12 @@ class TestConcatenatedSoftPath:
     (soft_fsk.encode_frames_batch / decode_frames_batch rs_parity)."""
 
     def _params(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
         return FSKParams.from_config(DEFAULT_FSK_CONFIG)
 
     def test_clean_roundtrip(self):
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
         params = self._params()
         payloads = [bytes([i] * 11) for i in range(4)]
         sigs = np.asarray(soft_fsk.encode_frames_batch(
@@ -193,7 +193,7 @@ class TestConcatenatedSoftPath:
         # a zeroed sample burst inside the body wipes several
         # consecutive coded bits: the inner Viterbi emits a short byte
         # burst that RS corrects; the plain conv frame is lost
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
         params = self._params()
         payloads = [bytes(range(20)), bytes(range(20, 40))]
         spb = params.samples_per_bit
@@ -222,7 +222,7 @@ class TestConcatenatedSoftPath:
     def test_single_and_streaming_paths_roundtrip(self):
         # the per-signal and chunked decoders speak the same
         # concatenated wire format as the batch path
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
         params = self._params()
         payload = bytes(range(17))
         sig = soft_fsk.encode_frame_signal(params, payload, rs_parity=8)
@@ -243,7 +243,7 @@ class TestConcatenatedSoftPath:
         assert out == [payload, payload]
 
     def test_rs_parity_validation(self):
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
         params = self._params()
         with pytest.raises(ValueError):
             soft_fsk.encode_frames_batch(params, [b"x"], rs_parity=3)

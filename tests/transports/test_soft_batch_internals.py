@@ -15,9 +15,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-from webaudio_modem_tpu.ops import fec, soft_fsk
-from webaudio_modem_tpu.utils.crc16 import CRC16
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+from webaudio_modem.ops import fec, soft_fsk
+from webaudio_modem.utils.crc16 import CRC16
 
 
 class TestAlignedRows:
@@ -222,10 +222,10 @@ class TestHeaderTopK:
 
 class TestHeaderStageBitsOptional:
     def test_bits_none_with_rsum_matches(self):
-        # the fused TPU path passes streams="soft" and hands the
-        # header stage bits=None (rsum carries sync, softs the shape);
-        # outputs must be identical to the bits-given call
-        from webaudio_modem_tpu.ops import fsk_demod
+        # with rsum given, the header stage reads sync from it and the
+        # shape from softs: bits=None must give outputs identical to
+        # the bits-given call
+        from webaudio_modem.ops import fsk_demod
 
         rng = np.random.RandomState(31)
         params, payloads, noisy = TestHeaderTopK._batch(rng, 8, 9, 0.05)
@@ -242,49 +242,60 @@ class TestHeaderStageBitsOptional:
 
 
 class TestHeaderStageCsumModes:
-    def test_full_mode_matches_softs_mode(self):
-        # csum_mode="full" hands the stage an already zero-prefixed
-        # cumsum; built with the same jnp.cumsum XLA runs inside
-        # _csum0's lax branch, the two calls must agree bit-exactly
-        from webaudio_modem_tpu.ops import fsk_demod
-
-        rng = np.random.RandomState(37)
-        params, payloads, noisy = TestHeaderTopK._batch(rng, 8, 9, 0.05)
-        state = fsk_demod.init_state(params, batch=len(noisy))
-        _, _, _, _, bits, _, softs, rsum = fsk_demod._sequential_stage(
-            params, 0, state, jnp.asarray(noisy), with_rsum=True)
-        body_bits_n = soft_fsk._body_coded_bits(9, 0, None)
-        full = jnp.concatenate(
-            [jnp.zeros((1, softs.shape[1]), jnp.float32),
-             jnp.cumsum(softs.astype(jnp.float32), axis=0)], 0)
-        via_softs = soft_fsk._batch_header_stage(
-            params, None, softs, body_bits_n, 8, rsum, "softs")
-        via_full = soft_fsk._batch_header_stage(
-            params, None, full, body_bits_n, 8, rsum, "full")
-        for a, b in zip(via_softs, via_full):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
     def test_body_stage_full_plane_contract(self):
-        # body stage with csum_virt0=True on an inc plane must equal
-        # the flagless call on the zero-prefixed plane (CPU downgrade
-        # path: the stage materializes the zero row internally)
-        from webaudio_modem_tpu.ops import fsk_demod
+        # the body stage on a zero-prefixed cumsum plane decodes exactly
+        # the LLR windows a per-element gather reads: Viterbi over
+        # wsum[b_start + j*ds] for every body bit j
+        from webaudio_modem.ops import fec, fsk_demod
 
         rng = np.random.RandomState(39)
         params, payloads, noisy = TestHeaderTopK._batch(rng, 8, 9, 0.05)
         state = fsk_demod.init_state(params, batch=len(noisy))
         _, _, _, _, _, _, softs, _ = fsk_demod._sequential_stage(
             params, 0, state, jnp.asarray(noisy), with_rsum=True)
-        inc = jnp.cumsum(softs.astype(jnp.float32), axis=0)
-        full = jnp.concatenate(
-            [jnp.zeros((1, softs.shape[1]), jnp.float32), inc], 0)
-        b_starts = jnp.asarray(
-            rng.randint(0, 40, softs.shape[1]), jnp.int32)
-        got = soft_fsk._batch_body_stage(params, inc, b_starts, 9,
-                                         0, None, True)
-        exp = soft_fsk._batch_body_stage(params, full, b_starts, 9,
-                                         0, None, False)
+        full = soft_fsk._csum0(softs)
+        b_starts = rng.randint(0, 40, softs.shape[1]).astype(np.int32)
+        got = soft_fsk._batch_body_stage(params, full, jnp.asarray(
+            b_starts), 9, 0, None)
+        ds = params.ds_samples_per_bit
+        body_bits = soft_fsk._body_coded_bits(9)
+        c = np.asarray(full)
+        wsum = np.float32(params.polarity) * (c[ds:] - c[:-ds])
+        rows = b_starts[None, :] + (np.arange(body_bits) * ds)[:, None]
+        llr = np.take_along_axis(wsum, rows, 0).T          # [B, body]
+        exp = fec._viterbi_core(
+            jnp.asarray(llr.reshape(len(b_starts), body_bits // 2, 2)),
+            8 * (9 + 2))
         np.testing.assert_array_equal(np.asarray(got), np.asarray(exp))
+
+
+class TestHeaderSelectionExact:
+    def test_topk_llrs_equal_gather(self):
+        # the top-k one-hot contraction selects LLR windows exactly (a
+        # TF32 matmul would round them): every valid candidate's LLRs
+        # equal a host gather of the same csum plane
+        from webaudio_modem.ops import fsk_demod
+
+        rng = np.random.RandomState(43)
+        params, payloads, noisy = TestHeaderTopK._batch(rng, 8, 9, 0.05)
+        state = fsk_demod.init_state(params, batch=len(noisy))
+        out = fsk_demod._sequential_stage(
+            params, 0, state, jnp.asarray(noisy), with_rsum=True)
+        body_n = soft_fsk._body_coded_bits(9)
+        t_peak, peak_ok, csum, _, _, _ = soft_fsk._batch_header_stage(
+            params, out[4], out[6], body_n, 8, out[7])
+        starts, h_llr, valid = soft_fsk._candidate_llrs(
+            params, csum, t_peak, peak_ok, body_n, 8)
+        c, starts = np.asarray(csum), np.asarray(starts)
+        h_llr, valid = np.asarray(h_llr), np.asarray(valid)
+        ds = params.ds_samples_per_bit
+        wsum = np.float32(params.polarity) * (c[ds:] - c[:-ds])
+        b, k = np.nonzero(valid)
+        assert len(b) > 0
+        rows = starts[b, k][:, None] + \
+            (np.arange(soft_fsk.HEADER_CODED_BITS) * ds)[None, :]
+        np.testing.assert_array_equal(h_llr[b, k],
+                                      wsum[rows, b[:, None]])
 
 
 class TestDeviceFrameSynthesis:
@@ -295,7 +306,7 @@ class TestDeviceFrameSynthesis:
     upload instead of host-framed phase tables)."""
 
     def test_matches_host_framing_exactly(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKConfig)
 
         rng = np.random.RandomState(11)
@@ -317,7 +328,7 @@ class TestDeviceFrameSynthesis:
                 np.testing.assert_array_equal(host, dev)
 
     def test_non_integer_config_falls_back(self):
-        from webaudio_modem_tpu.models.config import FSKConfig
+        from webaudio_modem.models.config import FSKConfig
 
         params = FSKParams.from_config(
             FSKConfig(mark_frequency=1650.5))

@@ -10,9 +10,9 @@ erasures, never corruption).
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-from webaudio_modem_tpu.ops import soft_fsk
-from webaudio_modem_tpu.ops.soft_blind import BlindSoftBatchReceiver
+from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+from webaudio_modem.ops import soft_fsk
+from webaudio_modem.ops.soft_blind import BlindSoftBatchReceiver
 
 QUANTUM = 4800
 
@@ -203,7 +203,7 @@ class TestBlindBodyCodes:
     program changes)."""
 
     def test_ldpc_body(self):
-        from webaudio_modem_tpu.ops.ldpc import default_code
+        from webaudio_modem.ops.ldpc import default_code
         code = default_code()
         rng = np.random.RandomState(31)
         B = 4
@@ -227,7 +227,7 @@ class TestBlindBodyCodes:
 
     def test_mixed_lengths_ldpc(self):
         # length still comes from the decoded header in body-code mode
-        from webaudio_modem_tpu.ops.ldpc import default_code
+        from webaudio_modem.ops.ldpc import default_code
         code = default_code()
         rng = np.random.RandomState(41)
         lens = [3, 9, 21]

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.ops.turbo import (M, TAIL, TurboCode, _tables,
+from webaudio_modem.ops.turbo import (M, TAIL, TurboCode, _tables,
                                           default_code)
 
 
@@ -109,9 +109,9 @@ def test_turbo_over_fsk_audio(code, soft_grid_search):
     no intrinsic syndrome, so the documented layering applies: a CRC16
     inside the K data bits validates both the decode and the bit-grid
     offset (the role LDPC's syndrome plays in the sibling test)."""
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG, FSKParams
-    from webaudio_modem_tpu.ops.fec import bits_to_bytes, bytes_to_bits
-    from webaudio_modem_tpu.utils.crc16 import CRC16
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG, FSKParams
+    from webaudio_modem.ops.fec import bits_to_bytes, bytes_to_bits
+    from webaudio_modem.utils.crc16 import CRC16
 
     params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
     rng = np.random.RandomState(11)
@@ -153,9 +153,9 @@ class TestTurboBodyMode:
 
     @pytest.fixture(scope="class")
     def setup(self):
-        from webaudio_modem_tpu.models.config import (DEFAULT_FSK_CONFIG,
+        from webaudio_modem.models.config import (DEFAULT_FSK_CONFIG,
                                                       FSKParams)
-        from webaudio_modem_tpu.ops import soft_fsk
+        from webaudio_modem.ops import soft_fsk
 
         params = FSKParams.from_config(DEFAULT_FSK_CONFIG)
         code = default_code(K=256)

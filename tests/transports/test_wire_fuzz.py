@@ -8,7 +8,7 @@ Two adversarial surfaces, modeled on the reference's adversarial suites
      event sequences through both implementations (hypothesis-driven).
   2. Random FSKConfig golden differentials: randomized baud / frequency
      pairs (including mark > space) / parity configs must decode
-     byte-identically through the batched TPU pipeline and the golden
+     byte-identically through the batched pipeline and the golden
      scalar comparator, clean and noisy.
 """
 
@@ -17,8 +17,8 @@ import pytest
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
-from webaudio_modem_tpu.native.deframer import Deframer
-from webaudio_modem_tpu.transports.xmodem.packet import XModemPacket
+from webaudio_modem.native.deframer import Deframer
+from webaudio_modem.transports.xmodem.packet import XModemPacket
 
 
 def _native_available() -> bool:
@@ -141,7 +141,7 @@ class TestDeframerDifferentialFuzz:
 # ---------------------------------------------------------------------------
 
 def _random_config(rnd: np.random.RandomState):
-    from webaudio_modem_tpu.models.config import FSKConfig
+    from webaudio_modem.models.config import FSKConfig
 
     baud = int(rnd.choice([300, 600, 1200]))
     # frequency pairs: random tone spacing >= max(2*baud, 160) Hz, both
@@ -159,8 +159,8 @@ def _random_config(rnd: np.random.RandomState):
 class TestRandomConfigGoldenDifferential:
     @pytest.mark.parametrize("seed", range(6))
     def test_random_config_decodes_identically(self, seed):
-        from webaudio_modem_tpu.golden import GoldenFSK
-        from webaudio_modem_tpu.models.fsk import FSKCore
+        from webaudio_modem.golden import GoldenFSK
+        from webaudio_modem.models.fsk import FSKCore
 
         rnd = np.random.RandomState(100 + seed)
         config = _random_config(rnd)

@@ -6,12 +6,12 @@ import asyncio
 
 import pytest
 
-from webaudio_modem_tpu.transports.xmodem import (ControlType, XModemPacket,
+from webaudio_modem.transports.xmodem import (ControlType, XModemPacket,
                                                   XModemTransport)
-from webaudio_modem_tpu.runtime.data_channel import (QueueDataChannel,
+from webaudio_modem.runtime.data_channel import (QueueDataChannel,
                                                      make_loopback_pair)
-from webaudio_modem_tpu.utils.abort import AbortController, AbortError
-from webaudio_modem_tpu.utils.crc16 import CRC16
+from webaudio_modem.utils.abort import AbortController, AbortError
+from webaudio_modem.utils.crc16 import CRC16
 
 ACK = XModemPacket.serialize_control(ControlType.ACK)
 NAK = XModemPacket.serialize_control(ControlType.NAK)

@@ -7,10 +7,10 @@ import asyncio
 
 import pytest
 
-from webaudio_modem_tpu.transports.xmodem import (ControlType, XModemPacket,
+from webaudio_modem.transports.xmodem import (ControlType, XModemPacket,
                                                   XModemTransport)
-from webaudio_modem_tpu.runtime.data_channel import QueueDataChannel
-from webaudio_modem_tpu.utils.abort import AbortController, AbortError
+from webaudio_modem.runtime.data_channel import QueueDataChannel
+from webaudio_modem.utils.abort import AbortController, AbortError
 
 ACK = XModemPacket.serialize_control(ControlType.ACK)
 NAK = XModemPacket.serialize_control(ControlType.NAK)

@@ -6,7 +6,7 @@ import asyncio
 
 import pytest
 
-from webaudio_modem_tpu.utils.abort import (AbortController, AbortError,
+from webaudio_modem.utils.abort import (AbortController, AbortError,
                                             AbortSignal, race_abort)
 
 
@@ -120,7 +120,7 @@ async def test_race_abort_pre_aborted():
 
 
 def test_config_from_camel_case_dict():
-    from webaudio_modem_tpu.models.config import FSKConfig
+    from webaudio_modem.models.config import FSKConfig
 
     cfg = FSKConfig.from_dict({
         "sampleRate": 44100, "baudRate": 300,
@@ -135,7 +135,7 @@ def test_config_from_camel_case_dict():
 
 
 def test_config_roundtrip_snake_case():
-    from webaudio_modem_tpu.models.config import FSKConfig
+    from webaudio_modem.models.config import FSKConfig
 
     cfg = FSKConfig.from_dict({"baud_rate": 600})
     assert cfg.baud_rate == 600
@@ -207,7 +207,7 @@ def test_timeout_any_detach_drops_refs():
     run's retained window costs bytes, not object graphs."""
     import asyncio
 
-    from webaudio_modem_tpu.utils.abort import AbortController, AbortSignal
+    from webaudio_modem.utils.abort import AbortController, AbortSignal
 
     async def main():
         ext = AbortController()

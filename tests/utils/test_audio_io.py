@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from webaudio_modem_tpu.utils.audio_io import read_wav, write_wav
+from webaudio_modem.utils.audio_io import read_wav, write_wav
 
 
 class TestWavRoundTrip:
@@ -58,8 +58,8 @@ class TestModemOverWav:
     def test_modulate_wav_demodulate(self, tmp_path):
         # full loop through a 16-bit PCM file: the quantization of a
         # real sound-card path must not cost a single byte
-        from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-        from webaudio_modem_tpu.models.fsk import FSKCore
+        from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+        from webaudio_modem.models.fsk import FSKCore
 
         data = b"WAV loop \x00\xff\x7e\x55"
         core = FSKCore(DEFAULT_FSK_CONFIG)

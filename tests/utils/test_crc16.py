@@ -2,7 +2,7 @@
 
 import time
 
-from webaudio_modem_tpu.utils import CRC16
+from webaudio_modem.utils import CRC16
 
 
 class TestStandardVectors:

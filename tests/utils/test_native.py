@@ -4,11 +4,11 @@ cross-checked against the pure-Python implementations."""
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.native import get_lib
-from webaudio_modem_tpu.native.deframer import (CONTROL, JUNK, PACKET,
+from webaudio_modem.native import get_lib
+from webaudio_modem.native.deframer import (CONTROL, JUNK, PACKET,
                                                 BAD_CRC, Deframer, Frame)
-from webaudio_modem_tpu.transports.xmodem import ControlType, XModemPacket
-from webaudio_modem_tpu.utils.crc16 import CRC16
+from webaudio_modem.transports.xmodem import ControlType, XModemPacket
+from webaudio_modem.utils.crc16 import CRC16
 
 
 def _wire(seq, payload):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from webaudio_modem_tpu.utils import RingBuffer
+from webaudio_modem.utils import RingBuffer
 
 
 def test_basic_put_get():
@@ -117,7 +117,7 @@ def test_wraparound_ordering():
 def test_bulk_write_wraparound_matches_scalar():
     import numpy as np
 
-    from webaudio_modem_tpu.utils import RingBuffer
+    from webaudio_modem.utils import RingBuffer
 
     a = RingBuffer(np.uint8, 16)
     b = RingBuffer(np.uint8, 16)
@@ -138,7 +138,7 @@ def test_bulk_write_wraparound_matches_scalar():
 def test_bulk_write_larger_than_capacity_keeps_newest():
     import numpy as np
 
-    from webaudio_modem_tpu.utils import RingBuffer
+    from webaudio_modem.utils import RingBuffer
 
     rb = RingBuffer(np.uint8, 8)
     rb.put(1, 2, 3)
@@ -149,7 +149,7 @@ def test_bulk_write_larger_than_capacity_keeps_newest():
 def test_bulk_read_zero_fills_underflow():
     import numpy as np
 
-    from webaudio_modem_tpu.utils import RingBuffer
+    from webaudio_modem.utils import RingBuffer
 
     rb = RingBuffer(np.float32, 8)
     rb.write_array(np.asarray([1.0, 2.0], np.float32))

@@ -2,7 +2,7 @@
 
 import logging
 
-from webaudio_modem_tpu.utils.trace import (Metrics, component_logger,
+from webaudio_modem.utils.trace import (Metrics, component_logger,
                                             metrics, set_debug)
 
 
@@ -15,9 +15,9 @@ def test_component_logger_tag():
 
 def test_set_debug_levels():
     set_debug(True)
-    assert logging.getLogger("webaudio_modem_tpu").level == logging.DEBUG
+    assert logging.getLogger("webaudio_modem").level == logging.DEBUG
     set_debug(False)
-    assert logging.getLogger("webaudio_modem_tpu").level == logging.WARNING
+    assert logging.getLogger("webaudio_modem").level == logging.WARNING
 
 
 def test_metrics_counters_and_gauges():
@@ -55,8 +55,8 @@ def test_global_registry_exists():
 async def test_metrics_wired_into_transport_e2e():
     """Counters must MOVE during a real transfer (the registry is not
     decorative plumbing — round-1 verdict weak #3)."""
-    from webaudio_modem_tpu.runtime.data_channel import make_loopback_pair
-    from webaudio_modem_tpu.transports.xmodem import XModemTransport
+    from webaudio_modem.runtime.data_channel import make_loopback_pair
+    from webaudio_modem.transports.xmodem import XModemTransport
 
     metrics.reset()
     a, b = make_loopback_pair()
@@ -77,8 +77,8 @@ async def test_metrics_wired_into_transport_e2e():
 def test_metrics_wired_into_fsk_core():
     import numpy as np
 
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-    from webaudio_modem_tpu.models.fsk import FSKCore
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+    from webaudio_modem.models.fsk import FSKCore
 
     metrics.reset()
     core = FSKCore(DEFAULT_FSK_CONFIG)
@@ -94,8 +94,8 @@ def test_metrics_wired_into_fsk_core():
 def test_metrics_wired_into_farm():
     import numpy as np
 
-    from webaudio_modem_tpu.models.config import DEFAULT_FSK_CONFIG
-    from webaudio_modem_tpu.models.farm import ModemFarm
+    from webaudio_modem.models.config import DEFAULT_FSK_CONFIG
+    from webaudio_modem.models.farm import ModemFarm
 
     metrics.reset()
     farm = ModemFarm(DEFAULT_FSK_CONFIG, 4, donate=False)
